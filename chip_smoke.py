@@ -1,7 +1,10 @@
 """Chip smoke test of tidb_tpu_torch on one CUDA card: builds the
 hand-written kernels, holds each against its plain PyTorch version,
-times them, then runs TPC-H Q6 and Q1 at SF1 from SQL to rows through
-the package's normal entry point (TestKit on the card).
+times them, then runs TPC-H Q6, Q1 and a global aggregate without range
+filters at SF1 from SQL to rows through the package's normal entry point
+(TestKit on the card), and the same three again through the package's
+MySQL wire server, with a raw-socket client. Each kernel's launches are
+counted per path.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one
 CUDA device and the CUDA toolkit (nvcc), and exits non-zero, printing no
@@ -10,9 +13,12 @@ of its output are a `{"kernels": [...]}` JSON line and
 `{"ok": true, "device": {...}}`."""
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import socket
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -21,6 +27,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SF, SEED = 1.0, 7
 WARM_RUNS = 5
+I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
 
 
 def log(*a):
@@ -54,6 +61,32 @@ def time_ms(fn, iters=20, flush=None):
     return statistics.median(times)
 
 
+def sector_bytes(live, ncols=1):
+    """Bytes that reading `ncols` int64 columns at the rows where `live`
+    is set must move: the card reads device memory in 32-byte sectors,
+    so every sector of 4 rows that holds such a row, once per column."""
+    import torch
+    pad = (-live.numel()) % 4
+    if pad:
+        live = torch.cat([live, live.new_zeros(pad)])
+    return 32 * ncols * int(live.view(-1, 4).any(1).sum())
+
+
+def range_filter_bytes(sum_cols, pred_cols, bounds, valid):
+    """range_filter_sums' bytes on this run's data: valid in full; each
+    predicate column at the rows that passed valid and every earlier
+    predicate (a thread stops at the first test that fails); the sum
+    columns at the rows that passed all; the k + 1 outputs. -> (bytes,
+    live rows)."""
+    live = valid
+    nbytes = valid.numel()
+    for c, (lo, hi) in zip(pred_cols, bounds):
+        nbytes += sector_bytes(live)
+        live = live & (c >= lo) & (c <= hi)
+    nbytes += sector_bytes(live, len(sum_cols)) + 8 * (len(sum_cols) + 1)
+    return nbytes, int(live.sum())
+
+
 def phase_card():
     import torch
     if not torch.cuda.is_available():
@@ -81,8 +114,11 @@ def phase_card():
 
 
 def main_path_inputs(tk):
-    """Q6's and Q1's kernel inputs per fact partition, built on the card
-    from the loaded lineitem the way the fused fragment builds them."""
+    """The kernels' inputs per fact partition, built on the card from the
+    loaded lineitem the way the fused fragment builds them: Q6's
+    (range_filter_sums, with the bounds copr/range_lowering.py derives
+    from Q6's five filters), QSUM's (masked_sums) and Q1's
+    (dense_group_sums)."""
     import numpy as np
     import torch
     from tidb_tpu_torch.chunk.device import shape_bucket
@@ -90,6 +126,10 @@ def main_path_inputs(tk):
     tbl = tk.domain.infoschema().table_by_name("test", "lineitem")
     ctab = tk.domain.columnar.tables[tbl.id]
     step = tk.domain.copr.device_rows
+    r_code = list(ctab.dicts[tbl.find_column("l_returnflag").id].values
+                  ).index("R")
+    q6_bounds = [(parse_date("1994-01-01"), parse_date("1995-01-01") - 1),
+                 (5, 7), (I64_MIN, 2399)]
 
     def col(name, sl, cap):
         a = ctab.data[tbl.find_column(name).id][sl].astype(np.int64)
@@ -107,18 +147,56 @@ def main_path_inputs(tk):
                                       "l_quantity", "l_extendedprice",
                                       "l_tax", "l_returnflag",
                                       "l_linestatus"))
-        q6_mask = valid & (ship >= parse_date("1994-01-01")) & \
-            (ship < parse_date("1995-01-01")) & (disc >= 5) & \
-            (disc <= 7) & (qty < 2400)
         disc_price = price * (100 - disc)
         q1_valid = valid & (ship <= parse_date("1998-12-01") - 90)
         q1_slots = torch.where(q1_valid, (rf + 1) * 3 + (ls + 1), 12)
         parts.append({
             "n": cap,
-            "q6": ([price * disc], q6_mask),
+            "q6": ([price * disc], [ship, disc, qty], q6_bounds, valid),
+            "qsum": ([qty, price], valid & (rf == r_code)),
             "q1": ([qty, price, disc_price, disc_price * (100 + tax), qty,
                     price, disc], q1_slots, q1_valid)})
     return parts
+
+
+def q6_replaced_path(sum_cols, pred_cols, valid):
+    """What Q6's fragment ran before range_filter_sums: the evaluator's
+    five compares ANDed into valid, then masked_sums."""
+    from tidb_tpu_torch.ops import scan_kernels as sk
+    from tidb_tpu_torch.types.time_types import parse_date
+    ship, disc, qty = pred_cols
+    mask = valid & (ship >= parse_date("1994-01-01")) & \
+        (ship < parse_date("1995-01-01")) & (disc >= 5) & (disc <= 7) & \
+        (qty < 2400)
+    return sk.masked_sums(sum_cols, mask)
+
+
+def range_edge_cases():
+    """range_filter_sums inputs off the main path: ragged n, k 0..16,
+    npred 1..16, empty ranges, bounds at INT64_MIN/MAX, values at the
+    int64 extremes, beyond 2^24 and negative."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(5)
+    out = []
+    for n in (1, 255, 257, 8191, 100_003):
+        for k in (0, 1, 3, 7, 16):
+            for npred in (1, 2, 5, 16):
+                sums = [torch.from_numpy(rng.integers(
+                    -(1 << 40), 1 << 40, n)).cuda() for _ in range(k)]
+                preds, bounds = [], []
+                for p in range(npred):
+                    v = rng.integers(-50, 50, n)
+                    v[rng.random(n) < 0.02] = I64_MIN
+                    v[rng.random(n) < 0.02] = I64_MAX
+                    preds.append(torch.from_numpy(v).cuda())
+                    a, b = sorted(int(x) for x in rng.integers(-60, 60, 2))
+                    bounds.append([(a, b), (I64_MIN, b), (a, I64_MAX),
+                                   (b + 1, a), (I64_MIN, I64_MAX)][
+                                       (p + k + n) % 5])
+                valid = torch.from_numpy(rng.random(n) < 0.9).cuda()
+                out.append((sums, preds, bounds, valid))
+    return out
 
 
 def edge_cases():
@@ -151,7 +229,7 @@ def phase_kernels(parts):
     partition. -> per-kernel record."""
     import torch
     from tidb_tpu_torch.ops import scan_kernels as sk
-    err = {"masked_sums": 0, "dense_group_sums": 0}
+    err = {"masked_sums": 0, "dense_group_sums": 0, "range_filter_sums": 0}
 
     def cmp(name, got, want):
         for g, w in zip(got, want):
@@ -164,9 +242,14 @@ def phase_kernels(parts):
             if g.numel():
                 err[name] = max(err[name], (g - w).abs().max().item())
     for p in parts:
-        cols, mask = p["q6"]
+        cols, mask = p["qsum"]
         cmp("masked_sums", sk.masked_sums(cols, mask),
             sk.masked_sums_plain(cols, mask))
+        cols, preds, bounds, valid = p["q6"]
+        got = sk.range_filter_sums(cols, preds, bounds, valid)
+        cmp("range_filter_sums", got,
+            sk.range_filter_sums_plain(cols, preds, bounds, valid))
+        cmp("range_filter_sums", got, q6_replaced_path(cols, preds, valid))
         cols, slots, valid = p["q1"]
         cmp("dense_group_sums", sk.dense_group_sums(cols, slots, 12, valid),
             sk.dense_group_sums_plain(cols, slots, 12, valid))
@@ -177,14 +260,19 @@ def phase_kernels(parts):
         cmp("dense_group_sums",
             sk.dense_group_sums(cols, slots, nslots, mask),
             sk.dense_group_sums_plain(cols, slots, nslots, mask))
+    rcases = range_edge_cases()
+    for sums, preds, bounds, valid in rcases:
+        cmp("range_filter_sums", sk.range_filter_sums(sums, preds, bounds,
+                                                      valid),
+            sk.range_filter_sums_plain(sums, preds, bounds, valid))
     torch.cuda.synchronize()
     log(f"kernels == plain versions on {len(parts)} main-path partitions "
-        f"and {len(cases)} edge cases (exact int64)")
+        f"and {len(cases)} + {len(rcases)} edge cases (exact int64)")
 
     flush = torch.ones(128 << 20, dtype=torch.uint8, device="cuda")
     rows = []
     for p in parts:
-        cols, mask = p["q6"]
+        cols, mask = p["qsum"]
         stacked = torch.stack(cols)
         n, k = p["n"], len(cols)
         nnz = int(mask.sum())
@@ -192,9 +280,20 @@ def phase_kernels(parts):
         t_p = time_ms(lambda: sk.masked_sums_plain(cols, mask), flush=flush)
         t_l = time_ms(lambda: torch.where(mask, stacked, 0).sum(1),
                       flush=flush)
-        nbytes = n + 8 * k * nnz + 8 * (k + 1)
+        nbytes = n + sector_bytes(mask, k) + 8 * (k + 1)
         rows.append(("masked_sums", n, k, nnz, t_k, t_p, t_l,
                      nbytes / HBM_BYTES_PER_S * 1e3))
+        cols, preds, bounds, valid = p["q6"]
+        k = len(cols)
+        nbytes, nnz = range_filter_bytes(cols, preds, bounds, valid)
+        t_k = time_ms(lambda: sk.range_filter_sums(cols, preds, bounds,
+                                                   valid), flush=flush)
+        t_p = time_ms(lambda: sk.range_filter_sums_plain(
+            cols, preds, bounds, valid), flush=flush)
+        t_r = time_ms(lambda: q6_replaced_path(cols, preds, valid),
+                      flush=flush)
+        rows.append(("range_filter_sums", n, k, nnz, t_k, t_p, None,
+                     nbytes / HBM_BYTES_PER_S * 1e3, t_r))
         cols, slots, valid = p["q1"]
         stacked = torch.stack(cols)
         k = len(cols)
@@ -209,13 +308,17 @@ def phase_kernels(parts):
         t_l = time_ms(lambda: torch.zeros((k, 13), dtype=torch.int64,
                                           device="cuda").index_add_(
             1, spill, stacked), flush=flush)
-        nbytes = n + (8 + 8 * k) * nnz + 8 * (k + 1) * 12
+        # valid in full, slots where valid, values where live, the table
+        nbytes = n + sector_bytes(valid) + sector_bytes(live, k) + \
+            8 * (k + 1) * 12
         rows.append(("dense_group_sums", n, k, nnz, t_k, t_p, t_l,
                      nbytes / HBM_BYTES_PER_S * 1e3))
     for r in rows:
+        other = (f"library {r[6]:.4f} ms" if r[6] is not None else
+                 f"replaced path (compares + masked_sums) {r[8]:.4f} ms")
         log(f"time {r[0]} n={r[1]} k={r[2]} live={r[3]}: kernel {r[4]:.4f} "
-            f"ms, plain {r[5]:.4f} ms, library {r[6]:.4f} ms, bound "
-            f"{r[7]:.4f} ms (bytes)")
+            f"ms, plain {r[5]:.4f} ms, {other}, bound {r[7]:.4f} ms "
+            f"({r[7] * 1e-3 * HBM_BYTES_PER_S:.0f} bytes)")
     big = {}
     for r in rows:
         if r[0] not in big or r[1] > big[r[0]][1]:
@@ -223,43 +326,79 @@ def phase_kernels(parts):
     return err, big
 
 
-def phase_sql(tk, exp):
-    """Q6 and Q1 through SQL on the card: cold once, warm WARM_RUNS
-    times; rows == numpy oracle == committed expected rows."""
+# (query, kernel its statements must launch once per partition or more,
+# kernels they must not launch)
+SQL_CASES = (("q6", "range_filter_sums", ("masked_sums",)),
+             ("q1", "dense_group_sums", ()),
+             ("qsum", "masked_sums", ("range_filter_sums",)))
+
+# domain counters, visible from every thread: a statement that takes the
+# fused device path adds 1 to the first and 0 to the others
+ROUTE_COUNTERS = ("fused_pipeline_hit", "copr_host_exec",
+                  "fused_pipeline_fallback", "fused_pipeline_error")
+
+
+def sql_and_rows(tk, exp, q):
+    """-> (sql, expected rows): Q6 and Q1 from the committed reference
+    rows, each also held to its numpy oracle; QSUM from its oracle."""
     from tidb_tpu_torch.bench import tpch
+    sql, oracle = {"q6": (tpch.Q6, tpch.q6_oracle),
+                   "q1": (tpch.Q1, tpch.q1_oracle),
+                   "qsum": (tpch.QSUM, tpch.qsum_oracle)}[q]
+    orc = oracle(tk)
+    want = [tuple(r) for r in exp[q]] if q in exp else orc
+    if orc != want:
+        fail(f"{q}: numpy oracle {orc} != expected rows {want}")
+    return sql, want
+
+
+def check_route(q, run, dom, m0, kern, l0, nparts, absent, a0):
+    """The statement took the fused device path through `kern`."""
+    d = {c: dom.metrics.get(c, 0) - m0[c] for c in ROUTE_COUNTERS}
+    if d["fused_pipeline_hit"] != 1:
+        fail(f"{q} {run}: did not take the fused device path "
+             f"({dom.last_fused_reason})")
+    for c in ROUTE_COUNTERS[1:]:
+        if d[c]:
+            fail(f"{q} {run}: {c} = {d[c]}")
+    if kern.launches - l0 < nparts:
+        fail(f"{q} {run}: {kern.__name__} launched {kern.launches - l0} "
+             f"times, < {nparts} partitions")
+    for fn, n0 in zip(absent, a0):
+        if fn.launches != n0:
+            fail(f"{q} {run}: {fn.__name__} launched {fn.launches - n0} "
+                 "times")
+
+
+def phase_sql(tk, exp, nparts):
+    """Q6, Q1 and QSUM through SQL on the card: cold once, warm
+    WARM_RUNS times; rows == numpy oracle (== committed expected rows
+    for Q6 and Q1). -> {query: warm median ms}."""
     from tidb_tpu_torch.ops import scan_kernels as sk
     from tidb_tpu_torch.utils import phase
     dom = tk.domain
     nrows = dom.columnar.tables[
         dom.infoschema().table_by_name("test", "lineitem").id].n
-    nparts = -(-nrows // dom.copr.device_rows)
-    for q, oracle, kern in (("q6", tpch.q6_oracle, sk.masked_sums),
-                            ("q1", tpch.q1_oracle, sk.dense_group_sums)):
-        want = [tuple(r) for r in exp[q]]
-        orc = oracle(tk)
-        if orc != want:
-            fail(f"{q}: numpy oracle {orc} != expected rows {want}")
+    meds = {}
+    for q, kname, absent_names in SQL_CASES:
+        sql, want = sql_and_rows(tk, exp, q)
+        kern = getattr(sk, kname)
+        absent = [getattr(sk, a) for a in absent_names]
         warm = []
         for i in range(1 + WARM_RUNS):
-            hits0 = dom.metrics.get("fused_pipeline_hit", 0)
-            l0 = kern.launches
+            m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS}
+            l0, a0 = kern.launches, [fn.launches for fn in absent]
             t0 = time.perf_counter()
-            got = tk.must_query(tpch.QUERIES[q])._norm()
+            got = tk.must_query(sql)._norm()
             ms = (time.perf_counter() - t0) * 1e3
             snap = phase.snap()
             if got != want:
                 fail(f"{q} run {i}: rows {got} != expected {want}")
-            if dom.metrics.get("fused_pipeline_hit", 0) != hits0 + 1:
-                fail(f"{q} run {i}: did not take the fused device path "
-                     f"({dom.last_fused_reason})")
-            if kern.launches - l0 < nparts:
-                fail(f"{q} run {i}: {kern.__name__} launched "
-                     f"{kern.launches - l0} times, < {nparts} partitions")
+            check_route(q, f"run {i}", dom, m0, kern, l0, nparts, absent,
+                        a0)
             for c in ("device_fallbacks", "fused_fallbacks", "host_execs"):
                 if snap.get(c, 0):
                     fail(f"{q} run {i}: {c} = {snap[c]}")
-            if dom.metrics.get("fused_pipeline_error", 0):
-                fail(f"{q} run {i}: fused_pipeline_error")
             if i > 0 and snap.get("upload_bytes", 0):
                 fail(f"{q} warm run {i}: uploaded {snap['upload_bytes']} "
                      "bytes")
@@ -271,10 +410,175 @@ def phase_sql(tk, exp):
                 f"upload_bytes={snap.get('upload_bytes', 0)} "
                 f"mask_upload_bytes={snap.get('mask_upload_bytes', 0)} "
                 f"launches={kern.launches - l0}")
-        med = statistics.median(warm)
-        log(f"sql {q}: rows == numpy oracle == expected ({len(want)} rows); "
-            f"warm median {med:.3f} ms, {nrows / med * 1e3:.4g} lineitem "
-            "rows/s")
+        meds[q] = statistics.median(warm)
+        log(f"sql {q}: rows == numpy oracle{' == expected' if q in exp else ''}"
+            f" ({len(want)} rows); warm median {meds[q]:.3f} ms, "
+            f"{nrows / meds[q] * 1e3:.4g} lineitem rows/s")
+    return meds
+
+
+class WireClient:
+    """A raw-socket MySQL 4.1 client: handshake v10 with
+    mysql_native_password, COM_QUERY and text result sets. The wire
+    server's tests (tests/test_torch_server.py) use it too."""
+
+    def __init__(self, port, user="root", password="", db="test",
+                 expect_ok=True, timeout=600):
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=timeout)
+        greeting = self._read()
+        if greeting[0] != 10:
+            raise RuntimeError(f"not a v10 handshake: {greeting[:16]!r}")
+        ve = greeting.index(b"\x00", 1)      # end of the version string
+        salt = greeting[ve + 5:ve + 13] + greeting[ve + 32:ve + 44]
+        token = b""
+        if password:
+            s1 = hashlib.sha1(password.encode()).digest()
+            s3 = hashlib.sha1(salt + hashlib.sha1(s1).digest()).digest()
+            token = bytes(a ^ b for a, b in zip(s1, s3))
+        caps = 0x200 | 0x8000         # PROTOCOL_41, SECURE_CONNECTION
+        if db:
+            caps |= 0x8               # CONNECT_WITH_DB
+        self._write(struct.pack("<IIB", caps, 1 << 24, 33) + b"\x00" * 23 +
+                    user.encode() + b"\x00" + bytes([len(token)]) + token +
+                    (db.encode() + b"\x00" if db else b""))
+        ok = self._read()
+        self.auth_ok = ok[0] == 0x00
+        if expect_ok and not self.auth_ok:
+            raise RuntimeError(f"handshake refused: {ok[3:]!r}")
+
+    def _recv(self, n):
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("server closed the connection")
+            buf += chunk
+        return buf
+
+    def _read(self):
+        out = b""
+        while True:
+            hdr = self._recv(4)
+            n = int.from_bytes(hdr[:3], "little")
+            self.seq = (hdr[3] + 1) & 0xFF
+            out += self._recv(n)
+            if n < 0xFFFFFF:
+                return out
+
+    def _write(self, payload):
+        self.sock.sendall(len(payload).to_bytes(3, "little") +
+                          bytes([self.seq]) + payload)
+        self.seq = (self.seq + 1) & 0xFF
+
+    def command(self, payload):
+        """Send one command packet (sequence number 0)."""
+        self.seq = 0
+        self._write(payload)
+
+    @staticmethod
+    def _lenenc(data, pos):
+        b = data[pos]
+        if b < 251:
+            return b, pos + 1
+        if b == 0xFB:
+            return None, pos + 1
+        width = {0xFC: 2, 0xFD: 3, 0xFE: 8}[b]
+        return int.from_bytes(data[pos + 1:pos + 1 + width], "little"), \
+            pos + 1 + width
+
+    def _first(self):
+        """The first packet of a response; raises on an error packet."""
+        first = self._read()
+        if first[0] == 0xFF:
+            code = struct.unpack_from("<H", first, 1)[0]
+            raise RuntimeError(f"server error {code}: "
+                               f"{first[9:].decode(errors='replace')}")
+        return first
+
+    def query(self, sql):
+        """-> {"cols": names, "rows": tuples of str (None for NULL)} for a
+        result set, {"affected": n} for an OK packet."""
+        self.command(b"\x03" + sql.encode())
+        first = self._first()
+        if first[0] == 0x00:
+            return {"affected": self._lenenc(first, 1)[0]}
+        ncols, _ = self._lenenc(first, 0)
+        cols = []
+        for _ in range(ncols):            # name: 5th lenenc string
+            pkt, pos = self._read(), 0
+            for _ in range(5):
+                ln, pos = self._lenenc(pkt, pos)
+                name = pkt[pos:pos + ln]
+                pos += ln
+            cols.append(name.decode())
+        self._read()                        # EOF
+        rows = []
+        while True:
+            pkt = self._read()
+            if pkt[0] == 0xFE and len(pkt) < 9:
+                return {"cols": cols, "rows": rows}
+            row, pos = [], 0
+            while pos < len(pkt):
+                ln, pos = self._lenenc(pkt, pos)
+                if ln is None:
+                    row.append(None)
+                else:
+                    row.append(pkt[pos:pos + ln].decode())
+                    pos += ln
+            rows.append(tuple(row))
+
+    def close(self):
+        try:
+            self.command(b"\x01")          # COM_QUIT
+        except OSError:
+            pass
+        self.sock.close()
+
+
+def phase_wire(tk, exp, nparts, testkit_meds):
+    """Q6 (first, then WARM_RUNS warm), Q1 and QSUM over the package's
+    MySQL wire server on the loaded SF1 domain. The server answers on its own
+    thread, so the route is read from counters every thread sees: the
+    domain's and the kernel wrappers' launch counts."""
+    from tidb_tpu_torch.ops import scan_kernels as sk
+    from tidb_tpu_torch.server import Server
+    dom = tk.domain
+    srv = Server(dom, port=0).start()
+    try:
+        client = WireClient(srv.port)
+        try:
+            warm = []
+            for q, run in [("q6", i) for i in range(1 + WARM_RUNS)] + \
+                    [("q1", 0), ("qsum", 0)]:
+                sql, want = sql_and_rows(tk, exp, q)
+                _q, kname, absent_names = next(c for c in SQL_CASES
+                                               if c[0] == q)
+                kern = getattr(sk, kname)
+                absent = [getattr(sk, a) for a in absent_names]
+                m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS}
+                l0, a0 = kern.launches, [fn.launches for fn in absent]
+                t0 = time.perf_counter()
+                got = client.query(sql)["rows"]
+                ms = (time.perf_counter() - t0) * 1e3
+                if got != want:
+                    fail(f"wire {q} run {run}: rows {got} != expected "
+                         f"{want}")
+                check_route(f"wire {q}", f"run {run}", dom, m0, kern, l0,
+                            nparts, absent, a0)
+                if q == "q6" and run > 0:
+                    warm.append(ms)
+                log(f"wire {q} {'first' if run == 0 else 'warm'} "
+                    f"{ms:.2f} ms launches={kern.launches - l0}")
+        finally:
+            client.close()
+    finally:
+        srv.shutdown()
+    med = statistics.median(warm)
+    log(f"wire q6: rows == expected over the MySQL protocol; warm median "
+        f"{med:.3f} ms (TestKit {testkit_meds['q6']:.3f} ms); q1 and qsum "
+        "== expected")
+    return med
 
 
 def main():
@@ -297,26 +601,42 @@ def main():
     log(f"load TPC-H SF{SF} seed {SEED}: "
         f"{time.perf_counter() - t0:.1f} s")
     parts = main_path_inputs(tk)
+    nparts = len(parts)
     err, big = phase_kernels(parts)
     del parts
     torch.cuda.empty_cache()
-    sk.reset_launches()                 # count the main path's run only
-    phase_sql(tk, exp)
-    launches = {fn.__name__: fn.launches for fn in sk.KERNELS}
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"{name} was not launched on the main path")
+    # each path's launches: counts set to 0 just before it, read just
+    # after; the kernel phase's launches count on neither
+    by_path = {}
+
+    def counted(path, run):
+        sk.reset_launches()
+        out = run()
+        by_path[path] = {fn.__name__: fn.launches for fn in sk.KERNELS}
+        for name, n in by_path[path].items():
+            if n == 0:
+                fail(f"{name} was not launched on the {path} path")
+        return out
+    meds = counted("sql", lambda: phase_sql(tk, exp, nparts))
+    counted("wire", lambda: phase_wire(tk, exp, nparts, meds))
+    log(f"launches by path: {json.dumps(by_path)}")
     replaces = {"masked_sums": "tidb_tpu/ops/pallas_scan.py:75",
-                "dense_group_sums": "tidb_tpu/ops/pallas_scan.py:219"}
+                "dense_group_sums": "tidb_tpu/ops/pallas_scan.py:219",
+                "range_filter_sums": "tidb_tpu/ops/pallas_scan.py:146"}
     kernels = []
-    for name in ("masked_sums", "dense_group_sums"):
+    for name in ("masked_sums", "dense_group_sums", "range_filter_sums"):
         r = big[name]
-        kernels.append({
+        rec = {
             "name": name, "route": "cuda",
             "source": "tidb_tpu_torch/ops/csrc/scan_kernels.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name],
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": err[name], "ms": r[4], "plain_ms": r[5],
-            "bound_ms": r[7], "bound_by": "bytes", "library_ms": r[6]})
+            "bound_ms": r[7], "bound_by": "bytes", "library_ms": r[6]}
+        if name == "range_filter_sums":
+            rec["replaced_path_ms"] = r[8]
+        kernels.append(rec)
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

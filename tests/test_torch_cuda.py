@@ -1,4 +1,4 @@
-"""tidb_tpu_torch on a CUDA card: the scan kernels against their plain
+"""tidb_tpu_torch on a CUDA card: the three scan kernels against their plain
 PyTorch versions, and the rule that a failed fused fragment fails its
 statement there. This file imports nothing of tidb_tpu or jax, so it
 also runs on a machine that has the card and no JAX:
@@ -42,14 +42,21 @@ def test_kernels_match_plain_on_card(n, k, nslots):
             for _ in range(k)]
     mask = _t(rng.random(n) < 0.5).cuda()
     slots = _t(rng.integers(-2, nslots + 2, n)).cuda()
+    preds = [_t(rng.integers(-50, 50, n)).cuda() for _ in range(nslots % 5)]
+    bounds = [(-20, 30), (-(1 << 63), 0), (10, 5), (-7, (1 << 63) - 1)][
+        :len(preds)]
     for got, want in ((sk.masked_sums(cols, mask),
                        sk.masked_sums_plain(cols, mask)),
                       (sk.dense_group_sums(cols, slots, nslots, mask),
-                       sk.dense_group_sums_plain(cols, slots, nslots, mask))):
+                       sk.dense_group_sums_plain(cols, slots, nslots, mask)),
+                      (sk.range_filter_sums(cols, preds, bounds, mask),
+                       sk.range_filter_sums_plain(cols, preds, bounds,
+                                                  mask))):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert sk.masked_sums.launches == 1 == sk.dense_group_sums.launches
+    assert sk.range_filter_sums.launches == 1
 
 
 def test_fused_error_fails_statement_on_card():

@@ -1,5 +1,6 @@
-"""tidb_tpu_torch stands alone: it runs SQL with jax and tidb_tpu
-blocked from import, no module of it (nor chip_smoke.py) imports them,
+"""tidb_tpu_torch stands alone: it runs SQL, its range lowering and its
+wire server with jax and tidb_tpu blocked from import, no module of it
+(nor chip_smoke.py) imports them,
 and its entry points refuse to run on the host unless asked to."""
 import os
 import re
@@ -23,11 +24,23 @@ class _Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, _Block())
 from tidb_tpu_torch.testkit import TestKit
 from tidb_tpu_torch.bench import tpch
+from tidb_tpu_torch.copr import range_lowering  # noqa: F401
+from tidb_tpu_torch.ops import scan_kernels
+from tidb_tpu_torch.server import Server, protocol, status  # noqa: F401
+from tidb_tpu_torch import __main__  # noqa: F401
+calls = []
+_rfs = scan_kernels.range_filter_sums
+scan_kernels.range_filter_sums = lambda *a: calls.append(1) or _rfs(*a)
 tk = TestKit(device="cpu")
 tpch.load_tpch(tk, sf=0.01, seed=7)
+srv = Server(tk.domain, port=0).start()
+st = status.start_status_server(tk.domain, port=0)
 rows = tk.must_query(tpch.Q6)._norm()
 assert rows == tpch.q6_oracle(tk), rows
 assert tk.domain.metrics.get("fused_pipeline_hit") == 1
+assert calls, "Q6 did not reach range_filter_sums"
+srv.shutdown()
+st.shutdown()
 bad = [m for m in sys.modules if m in ("jax", "jaxlib", "tidb_tpu")
        or m.startswith(("jax.", "jaxlib.", "tidb_tpu."))]
 assert not bad, bad

@@ -41,7 +41,8 @@ def kits():
 def kernel_calls(monkeypatch):
     """Count calls of the scan-kernel wrappers (on the CPU they run their
     plain versions, so `.launches` stays 0)."""
-    calls = {"masked_sums": 0, "dense_group_sums": 0}
+    calls = {"masked_sums": 0, "dense_group_sums": 0,
+             "range_filter_sums": 0}
     for name in calls:
         fn = getattr(scan_kernels, name)
 
@@ -52,7 +53,7 @@ def kernel_calls(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("q,kernel", [("q6", "masked_sums"),
+@pytest.mark.parametrize("q,kernel", [("q6", "range_filter_sums"),
                                       ("q1", "dense_group_sums")])
 def test_tpch_rows_equal_reference(kits, kernel_calls, q, kernel):
     ref, port = kits
@@ -84,6 +85,126 @@ def test_warm_counters_within_reference(kits, q):
         assert p.get(key, 0) <= r.get(key, 0), (key, p, r)
     assert p.get("dispatches", 0) >= 1            # the fused fragment ran
     assert p.get("upload_hits", 0) >= 1           # resident columns reused
+
+
+# (sql, kernel, kernels that must not run): the three routes of a global
+# aggregation. Q6 with a string filter mixes the routes: the range
+# filters run in the kernel, the string filter on the evaluator into its
+# valid mask. QSUM has no range filter and keeps masked_sums.
+GLOBAL_ROUTE_SQL = [
+    (port_tpch.Q6.rstrip() + " and l_returnflag = 'R'",
+     "range_filter_sums", ("masked_sums",)),
+    (port_tpch.Q6.rstrip() + " and l_tax != 0.02 and l_linestatus = 'F'",
+     "range_filter_sums", ("masked_sums",)),
+    ("select count(*) from lineitem where l_quantity between 10 and 20.5 "
+     "and l_discount >= 0.05", "range_filter_sums", ("masked_sums",)),
+    (port_tpch.QSUM, "masked_sums", ("range_filter_sums",)),
+    # min/max are not the kernels' aggregates: the range filters go back
+    # to the evaluator and the plain reductions
+    ("select min(l_extendedprice), max(l_quantity), count(*) from "
+     "lineitem where l_shipdate < date '1993-01-01'", None,
+     ("range_filter_sums", "masked_sums")),
+]
+
+
+@pytest.mark.parametrize("sql,kernel,absent", GLOBAL_ROUTE_SQL)
+def test_global_aggregate_routes_equal_reference(kits, kernel_calls, sql,
+                                                 kernel, absent):
+    ref, port = kits
+    hits0 = port.domain.metrics.get("fused_pipeline_hit", 0)
+    assert port.must_query(sql)._norm() == ref.must_query(sql)._norm()
+    assert port.domain.metrics.get("fused_pipeline_hit", 0) == hits0 + 1
+    if kernel is not None:
+        assert kernel_calls[kernel] >= 1
+    for name in absent:
+        assert kernel_calls[name] == 0, name
+    if sql is port_tpch.QSUM:
+        assert port_tpch.qsum_oracle(port) == \
+            port.must_query(sql)._norm()
+
+
+def test_q6_delta_partition_equals_reference(kits, kernel_calls):
+    """Q6 inside a transaction with uncommitted inserts: the inserted
+    rows run as one more partition through the same range fragment."""
+    ref, port = kits
+    ins = ("insert into lineitem (l_orderkey, l_quantity, "
+           "l_extendedprice, l_discount, l_tax, l_returnflag, "
+           "l_linestatus, l_shipdate) values "
+           "(1, 10.00, 1000.00, 0.06, 0.01, 'N', 'O', '1994-06-01'),"
+           "(2, 23.99, 2000.00, 0.05, 0.02, 'R', 'F', '1994-01-01'),"
+           "(3, 24.00, 3000.00, 0.07, 0.02, 'A', 'F', '1994-12-31'),"
+           "(4, 1.00, 4000.00, 0.08, 0.00, 'N', 'O', '1994-03-03'),"
+           "(5, 2.00, 5000.00, 0.06, 0.00, 'N', 'O', '1995-01-01')")
+    q6 = port_tpch.QUERIES["q6"]
+    before = port.must_query(q6)._norm()
+    try:
+        for kit in (ref, port):
+            kit.must_exec("begin")
+            kit.must_exec(ins)
+        calls0 = kernel_calls["range_filter_sums"]
+        ovl0 = port.domain.metrics.get("fused_pipeline_dirty_overlay", 0)
+        got = port.must_query(q6)._norm()
+        assert got == ref.must_query(ref_tpch.QUERIES["q6"])._norm()
+        assert got != before
+        assert port.domain.metrics.get("fused_pipeline_dirty_overlay",
+                                       0) == ovl0 + 1
+        assert kernel_calls["range_filter_sums"] - calls0 >= 2
+    finally:
+        for kit in (ref, port):
+            kit.must_exec("rollback")
+    assert port.must_query(q6)._norm() == before
+
+
+def _null_table_sql(rows=5000, seed=11):
+    """A table past the planner's 4096-row floor for fusing, whose
+    predicate columns hold NULLs (about one row in four)."""
+    rng = np.random.default_rng(seed)
+    vals = []
+    for i in range(rows):
+        n = "null" if rng.random() < 0.25 else str(int(rng.integers(-20, 20)))
+        v = "null" if rng.random() < 0.1 else \
+            f"{int(rng.integers(-99999, 99999)) / 100:.2f}"
+        d = "null" if rng.random() < 0.25 else \
+            f"'199{int(rng.integers(3, 7))}-0{int(rng.integers(1, 10))}-15'"
+        vals.append(f"({i + 1}, {n}, {v}, {d})")
+    return ["create table rn (id int primary key, n int, v decimal(10,2), "
+            "d date)", "insert into rn values " + ",".join(vals)]
+
+
+@pytest.mark.parametrize("sql", [
+    "select sum(id), count(*) from rn where n >= 3 and n < 9",
+    "select count(*) from rn where d between '1994-01-01' and '1995-06-30'",
+    "select sum(id), count(*) from rn where n > 2 and v <= 3.1",
+    "select sum(id) from rn where n <= 100 and d >= date '1995-01-01'",
+])
+def test_range_route_null_predicate_columns_equal_reference(kernel_calls,
+                                                            sql):
+    """A predicate column with NULLs: NULL compares false, so the
+    column's ~nulls join the kernel's valid mask."""
+    ref, port = RefKit(), PortKit(device="cpu")
+    for setup in _null_table_sql():
+        ref.must_exec(setup)
+        port.must_exec(setup)
+    hits0 = port.domain.metrics.get("fused_pipeline_hit", 0)
+    assert port.must_query(sql)._norm() == ref.must_query(sql)._norm()
+    assert port.domain.metrics.get("fused_pipeline_hit", 0) == hits0 + 1
+    assert kernel_calls["range_filter_sums"] >= 1
+
+
+def test_range_route_nullable_sum_argument_equals_reference(kernel_calls):
+    """The plan picks the range route for sum/count, but a sum argument
+    that arrives with a null mask is not the kernel's shape: that
+    partition runs the evaluator's compares and the plain reductions."""
+    ref, port = RefKit(), PortKit(device="cpu")
+    for setup in _null_table_sql():
+        ref.must_exec(setup)
+        port.must_exec(setup)
+    sql = "select sum(v), count(v), count(*) from rn where n >= 3 and n < 9"
+    hits0 = port.domain.metrics.get("fused_pipeline_hit", 0)
+    assert port.must_query(sql)._norm() == ref.must_query(sql)._norm()
+    assert port.domain.metrics.get("fused_pipeline_hit", 0) == hits0 + 1
+    assert kernel_calls["range_filter_sums"] == 0
+    assert kernel_calls["masked_sums"] == 0
 
 
 SLOT_DOMAIN_SQL = [
@@ -249,7 +370,7 @@ def test_import_columns_carries_reference_state(kits, kernel_calls):
         assert port.must_query(port_tpch.QUERIES[q])._norm() == \
             ref.must_query(ref_tpch.QUERIES[q])._norm()
     assert port.domain.metrics.get("fused_pipeline_hit", 0) == 2
-    assert kernel_calls["masked_sums"] >= 1
+    assert kernel_calls["range_filter_sums"] >= 1
     assert kernel_calls["dense_group_sums"] >= 1
 
 

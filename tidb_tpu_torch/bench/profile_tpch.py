@@ -46,6 +46,7 @@ STAGES = [
     ("fragment_enqueue", "copr/pipeline.py", "body"),
     ("masked_sums_wrapper", "ops/scan_kernels.py", "masked_sums"),
     ("dense_group_sums_wrapper", "ops/scan_kernels.py", "dense_group_sums"),
+    ("range_filter_sums_wrapper", "ops/scan_kernels.py", "range_filter_sums"),
     ("fetch_and_compact", "copr/dag_exec.py", "_compact_dense"),
     ("final_merge", "executor/executors.py", "_merge_partials"),
 ]

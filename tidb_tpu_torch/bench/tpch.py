@@ -374,6 +374,17 @@ def q1_oracle(tk) -> list:
     return sorted(rows, key=lambda r: (r[0], r[1]))
 
 
+def qsum_oracle(tk) -> list:
+    """QSUM's rows as strings (TestKit's normal form)."""
+    (rf, rfd), (qty, _), (price, _) = _lineitem(
+        tk, "l_returnflag", "l_quantity", "l_extendedprice")
+    m = rf == (rfd.index("R") if "R" in rfd else -1)
+    if not m.any():
+        return [("<nil>", "<nil>", "0")]
+    return [(_fmt_scaled(int(qty[m].sum()), 2),
+             _fmt_scaled(int(price[m].sum()), 2), str(int(m.sum())))]
+
+
 Q1 = """
 select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
   sum(l_extendedprice) as sum_base_price,
@@ -415,6 +426,14 @@ where l_shipdate >= date '1994-01-01'
   and l_shipdate < date '1994-01-01' + interval 1 year
   and l_discount between 0.06 - 0.01 and 0.06 + 0.01
   and l_quantity < 24
+"""
+
+# a fused global aggregate with no range predicate: its string filter
+# stays on the evaluator, so it reduces through masked_sums
+QSUM = """
+select sum(l_quantity) as sum_qty, sum(l_extendedprice) as sum_price,
+  count(*) as count_order
+from lineitem where l_returnflag = 'R'
 """
 
 QUERIES = {"q1": Q1, "q3": Q3, "q5": Q5, "q6": Q6}

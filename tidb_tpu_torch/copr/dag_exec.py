@@ -9,15 +9,23 @@ partial aggregation that the fused pipeline (copr/pipeline.py) runs on
 the device, and the host twin of every reader DAG (_execute_host /
 _host_partial_agg). The dense lowering routes by shape:
 
-  nslots == 1           _dense_agg_states_reduce -> ops.masked_sums
-  nslots <= MAX_SLOTS   _dense_agg_states_bcr    -> ops.dense_group_sums
-  any other shape       _dense_agg_states_scatter (torch index_add_ /
-                        scatter_reduce_, the reference's CPU lowering)
+  nslots == 1, range filters   dense_agg_states_range
+                                  -> ops.range_filter_sums
+  nslots == 1, no range filter _dense_agg_states_reduce
+                                  -> ops.masked_sums
+  nslots <= MAX_SLOTS          _dense_agg_states_bcr
+                                  -> ops.dense_group_sums
+  any other shape              _dense_agg_states_scatter (torch
+                               index_add_ / scatter_reduce_, the
+                               reference's CPU lowering)
 
-The two kernels take a shape only when every aggregate is sum/avg/count
-and every argument is an int64 tensor without a null mask (k <= 16);
-a global reduce of any other shape runs the plain torch twin of the
-reference's masked reductions, and a slot domain the scatter.
+The range route is the fused fragment's (copr/pipeline.py): its fact
+filters that copr/range_lowering.py turns into column bounds are tested
+inside the kernel. The three kernels take a shape only when every
+aggregate is sum/avg/count and every argument is an int64 tensor without
+a null mask (k <= 16, _kernel_args); a global reduce of any other shape
+runs the plain torch twin of the reference's masked reductions, and a
+slot domain the scatter.
 
 Not yet ported: the reader-DAG device fragments (the reference's
 filter / top-n / partition-aggregation kernels, sort/runs/one-hot
@@ -686,16 +694,25 @@ def _agg_eval_rows(ctx, a, mask, cap):
     return torch.ones(cap, dtype=INT64, device=ctx.xp.device), mask
 
 
+def kernel_aggs_fit(aggs):
+    """The part of the scan kernels' shape rule that the plan decides:
+    every aggregate is sum/avg/count, with at most scan_kernels.MAX_COLS
+    sum/avg arguments."""
+    if any(a.name not in ("sum", "avg", "count") for a in aggs):
+        return False
+    return sum(1 for a in aggs if a.name != "count" and a.args) <= \
+        scan_kernels.MAX_COLS
+
+
 def _kernel_args(ctx, aggs, cap):
-    """The scan kernels' shape rule: every aggregate is sum/avg/count
-    and every argument evaluates to an int64 [cap] tensor with no null
-    mask, at most scan_kernels.MAX_COLS of them. -> the evaluated
-    sum/avg argument tensors (a count needs none: with no null mask it
-    is the row count), or None for any other shape."""
+    """The scan kernels' shape rule: kernel_aggs_fit, and every argument
+    evaluates to an int64 [cap] tensor with no null mask. -> the
+    evaluated sum/avg argument tensors (a count needs none: with no null
+    mask it is the row count), or None for any other shape."""
+    if not kernel_aggs_fit(aggs):
+        return None
     cols = []
     for a in aggs:
-        if a.name not in ("sum", "avg", "count"):
-            return None
         if not a.args:
             continue
         d, nl, _ = eval_expr(ctx, a.args[0])
@@ -705,8 +722,6 @@ def _kernel_args(ctx, aggs, cap):
             return None
         if a.name != "count":
             cols.append(d.contiguous())
-    if len(cols) > scan_kernels.MAX_COLS:
-        return None
     return cols
 
 
@@ -734,6 +749,12 @@ def _dense_agg_states_reduce(ctx, mask, aggs, cap):
         count = count[None]
         return {"present": count,
                 "states": _kernel_states(aggs, sums[:, None], count)}
+    return _reduce_plain(ctx, mask, aggs, cap)
+
+
+def _reduce_plain(ctx, mask, aggs, cap):
+    """Global aggregation as plain torch masked reductions (the
+    reference's twin), for aggregates the kernels do not take."""
     dev = ctx.xp.device
     states = []
     for a in aggs:
@@ -754,6 +775,33 @@ def _dense_agg_states_reduce(ctx, mask, aggs, cap):
         else:
             raise NotImplementedError(a.name)
     return {"present": mask.sum(dtype=INT64)[None], "states": states}
+
+
+def dense_agg_states_range(ctx, valid, aggs, ranges, cap):
+    """Global aggregation (nslots == 1) under range filters through the
+    range_filter_sums kernel: `ranges` is a copr/range_lowering
+    RangeLowering over ctx's columns, `valid` the row mask with every
+    other filter already ANDed in. A predicate column's NULLs compare
+    false, so its ~nulls join valid. The plan picked this route for
+    aggregates that fit (kernel_aggs_fit); an argument that arrives with
+    a null mask or another dtype sends the partition to the evaluator's
+    compares and the plain reductions."""
+    cols = _kernel_args(ctx, aggs, cap)
+    if cols is None:
+        for f in ranges.lowered:
+            valid = valid & eval_bool_mask(ctx, f)
+        return _reduce_plain(ctx, valid, aggs, cap)
+    preds = []
+    for idx in ranges.cols:
+        d, nl, _ = ctx.cols[idx]
+        if isinstance(nl, torch.Tensor):
+            valid = valid & ~nl
+        preds.append(d.contiguous())
+    sums, count = scan_kernels.range_filter_sums(cols, preds, ranges.bounds,
+                                                 valid)
+    count = count[None]
+    return {"present": count,
+            "states": _kernel_states(aggs, sums[:, None], count)}
 
 
 def _dense_agg_states_bcr(ctx, mask, aggs, slot, nslots, cap):

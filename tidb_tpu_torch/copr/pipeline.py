@@ -13,8 +13,21 @@ i+1 is dispatched before partition i is consumed.
 Ported slice: zero-dimension pipelines (no fused joins) with a dense
 group layout (agg_kind "dense": global aggregation, or group keys
 whose combined domain is small) and expressions of
-expression/torch_ns.TORCH_OPS. That is TPC-H Q6 and Q1, whose
-aggregation runs through the ops/ scan kernels. Every other shape —
+expression/torch_ns.TORCH_OPS. That is TPC-H Q6 and Q1, whose filters
+and aggregation run through the ops/ scan kernels, routed by the plan's
+shape when the body is built:
+
+  one slot, range filters     the filters that copr/range_lowering.py
+                              turns into column bounds are tested in
+                              ops.range_filter_sums (Q6); the others
+                              are ANDed into its valid mask first
+  one slot, no range filter   filters -> mask -> ops.masked_sums
+  a slot domain               filters -> mask -> ops.dense_group_sums
+                              (<= 64 slots, Q1) or the torch scatter
+
+(copr/dag_exec.py's header has the aggregate shapes each kernel takes;
+any other falls back, by shape, to the evaluator and the plain torch
+reductions.) Every other shape —
 dimension probes, posdense/one-hot/sort aggregation, MPP — returns
 None with last_fused_reason "not yet ported: ...", and the executor
 takes its counted host path, the reference's own way of declining a
@@ -31,7 +44,9 @@ from ..expression.vec import materialize_nulls
 from ..expression.torch_ns import TORCH_OPS, ops_of
 from ..chunk.device import shape_bucket
 from .dag_exec import (capture_agg_dicts, _dense_strides, dense_agg_body,
+                       dense_agg_states_range, kernel_aggs_fit,
                        _compact_dense)
+from .range_lowering import lower_filters
 from ..utils.fetch import prefetch
 from ..utils import failpoint
 from ..utils import memory as _memory
@@ -192,16 +207,26 @@ def _make_pipeline_body(plan, fact_cap, fact_sdicts, sizes, xp):
     partition capacity, xp the TorchNS of the copr's device. The
     reference's _build_fused_kernel jit-compiles this body; torch runs
     it eagerly, so there is nothing to build. Only zero-dimension plans
-    reach it (_decline_reason)."""
+    reach it (_decline_reason). A global aggregation (one slot) whose
+    filters lower to column bounds runs them in range_filter_sums."""
     fact_filters = list(plan.fact_dag.filters)
     group_items = list(plan.group_items)
     aggs = list(plan.aggs)
+    nslots = 1
+    for size, _off in sizes:
+        nslots *= size
+    ranges = lower_filters(fact_filters) \
+        if nslots == 1 and kernel_aggs_fit(aggs) else None
 
     def body(fjc, fvv):
         cap = fact_cap
         cols = {k: (d, nl, fact_sdicts[k]) for k, (d, nl) in fjc.items()}
         ctx = EvalCtx(xp, cap, cols, host=False)
         mask = fvv
+        if ranges is not None:
+            for f in ranges.rest:
+                mask = mask & eval_bool_mask(ctx, f)
+            return dense_agg_states_range(ctx, mask, aggs, ranges, cap)
         for f in fact_filters:
             mask = mask & eval_bool_mask(ctx, f)
         return dense_agg_body(ctx, mask, group_items, aggs, sizes, cap)

@@ -1,12 +1,17 @@
 """Scan-side reductions of the fused coprocessor fragment: hand-written
 CUDA kernels (ops/csrc/scan_kernels.cu) with their plain PyTorch twins.
 
-masked_sums       <- tidb_tpu/ops/pallas_scan.py:masked_sums (Q6's
-                     global reduce: int64 sums of k columns where mask,
-                     plus the count)
+masked_sums       <- tidb_tpu/ops/pallas_scan.py:masked_sums (the
+                     global reduce of an aggregate without range
+                     filters: int64 sums of k columns where mask, plus
+                     the count)
 dense_group_sums  <- tidb_tpu/ops/pallas_scan.py:dense_group_sums (Q1's
                      small-domain group sums: per-slot int64 sums of k
                      columns plus per-slot counts)
+range_filter_sums <- tidb_tpu/ops/pallas_scan.py:range_filter_sums (Q6's
+                     whole fragment: inclusive [lo, hi] tests on npred
+                     int64 columns ANDed with valid, then int64 sums of
+                     k columns plus the count)
 
 The wrappers keep the JAX entry points' argument order and return
 layout. They route on the device of the tensors they are given: CPU
@@ -20,6 +25,7 @@ notes (bounds, designs) are in scan_kernels.cu."""
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -27,6 +33,8 @@ from ..errors import TiDBError
 
 MAX_COLS = 16          # kMaxCols in scan_kernels.cu
 MAX_SLOTS = 64         # kMaxSlots in scan_kernels.cu (shared-memory table)
+MAX_PREDS = 16         # kMaxPreds in scan_kernels.cu (kernel parameters)
+_I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
 
 
 class KernelError(TiDBError):
@@ -34,28 +42,50 @@ class KernelError(TiDBError):
 
 
 _FNS: dict = {}
+# the library is loaded once; connection threads of a cold server can
+# reach their first launch together, and launch counts are read across
+# threads
+_LOCK = threading.Lock()
 
 
 def _lib():
     lib = _FNS.get("lib")
-    if lib is None:
-        from .build import load
-        lib = load("scan_kernels")
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.tidb_masked_sums.argtypes = [ctypes.POINTER(vp), i, vp, ll, vp,
-                                         vp]
-        lib.tidb_masked_sums.restype = i
-        lib.tidb_dense_group_sums.argtypes = [ctypes.POINTER(vp), i, vp, vp,
-                                              ll, i, vp, vp]
-        lib.tidb_dense_group_sums.restype = i
-        lib.tidb_scan_max_cols.restype = i
-        lib.tidb_scan_max_slots.restype = i
-        if lib.tidb_scan_max_cols() != MAX_COLS or \
-                lib.tidb_scan_max_slots() != MAX_SLOTS:
-            raise KernelError("scan_kernels.cu kMaxCols/kMaxSlots != "
-                              "MAX_COLS/MAX_SLOTS")
-        _FNS["lib"] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _FNS.get("lib")
+        if lib is None:
+            lib = _load_lib()
+            _FNS["lib"] = lib
     return lib
+
+
+def _load_lib():
+    from .build import load
+    lib = load("scan_kernels")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.tidb_masked_sums.argtypes = [ctypes.POINTER(vp), i, vp, ll, vp, vp]
+    lib.tidb_masked_sums.restype = i
+    lib.tidb_dense_group_sums.argtypes = [ctypes.POINTER(vp), i, vp, vp,
+                                          ll, i, vp, vp]
+    lib.tidb_dense_group_sums.restype = i
+    lib.tidb_range_filter_sums.argtypes = [
+        ctypes.POINTER(vp), i, ctypes.POINTER(vp), i, ctypes.POINTER(ll),
+        ctypes.POINTER(ll), vp, ll, vp, vp]
+    lib.tidb_range_filter_sums.restype = i
+    for fn in (lib.tidb_scan_max_cols, lib.tidb_scan_max_slots,
+               lib.tidb_scan_max_preds):
+        fn.restype = i
+    if (lib.tidb_scan_max_cols(), lib.tidb_scan_max_slots(),
+            lib.tidb_scan_max_preds()) != (MAX_COLS, MAX_SLOTS, MAX_PREDS):
+        raise KernelError("scan_kernels.cu kMaxCols/kMaxSlots/kMaxPreds != "
+                          "MAX_COLS/MAX_SLOTS/MAX_PREDS")
+    return lib
+
+
+def _launched(fn):
+    with _LOCK:
+        fn.launches += 1
 
 
 def _check_vec(name, t, dtype, n, device):
@@ -119,7 +149,7 @@ def masked_sums(columns, mask):
     rc = _lib().tidb_masked_sums(_ptr_array(columns), k, mask.data_ptr(),
                                  n, out.data_ptr(), stream)
     _check_rc(rc, "masked_sums")
-    masked_sums.launches += 1
+    _launched(masked_sums)
     return out[:k], out[k]
 
 
@@ -173,14 +203,73 @@ def dense_group_sums(value_cols, slots, nslots, valid):
         _ptr_array(value_cols), k, slots.data_ptr(), valid.data_ptr(), n,
         nslots, out.data_ptr(), stream)
     _check_rc(rc, "dense_group_sums")
-    dense_group_sums.launches += 1
+    _launched(dense_group_sums)
     return out[:k], out[k]
 
 
 dense_group_sums.launches = 0
 
 
-KERNELS = (masked_sums, dense_group_sums)
+# ---- range_filter_sums --------------------------------------------------
+
+def range_filter_sums_plain(sum_cols, pred_cols, bounds, valid):
+    """Plain PyTorch range_filter_sums: the per-predicate range tests
+    ANDed into valid, then masked sums. -> (sums int64 [k], count int64 [])"""
+    mask = valid
+    for c, (lo, hi) in zip(pred_cols, bounds):
+        mask = mask & (c >= lo) & (c <= hi)
+    return masked_sums_plain(sum_cols, mask)
+
+
+def range_filter_sums(sum_cols, pred_cols, bounds, valid):
+    """int64 sums of `sum_cols` (k int64 [n] tensors) plus the count over
+    the rows where `valid` (bool [n]) is set and every predicate column
+    (npred int64 [n] tensors) lies in its inclusive bound (`bounds`:
+    npred (lo, hi) pairs; lo > hi passes no row).
+    -> (sums int64 [k], count int64 [])."""
+    _check_vec("valid", valid, torch.bool, None, valid.device
+               if isinstance(valid, torch.Tensor) else None)
+    n, dev = valid.shape[0], valid.device
+    sum_cols, pred_cols = list(sum_cols), list(pred_cols)
+    bounds = [(int(lo), int(hi)) for lo, hi in bounds]
+    if len(sum_cols) > MAX_COLS:
+        raise ValueError(f"range_filter_sums takes at most {MAX_COLS} "
+                         "sum columns")
+    if len(pred_cols) > MAX_PREDS:
+        raise ValueError(f"range_filter_sums takes at most {MAX_PREDS} "
+                         "predicate columns")
+    if len(bounds) != len(pred_cols):
+        raise ValueError(f"range_filter_sums: {len(bounds)} bounds for "
+                         f"{len(pred_cols)} predicate columns")
+    for lo, hi in bounds:
+        if not (_I64_MIN <= lo <= _I64_MAX and _I64_MIN <= hi <= _I64_MAX):
+            raise ValueError(f"range_filter_sums: bound ({lo}, {hi}) is "
+                             "not int64")
+    for j, c in enumerate(sum_cols):
+        _check_vec(f"sum_cols[{j}]", c, torch.int64, n, dev)
+    for j, c in enumerate(pred_cols):
+        _check_vec(f"pred_cols[{j}]", c, torch.int64, n, dev)
+    if dev.type == "cpu":
+        return range_filter_sums_plain(sum_cols, pred_cols, bounds, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"range_filter_sums: unsupported device {dev}")
+    k, npred = len(sum_cols), len(pred_cols)
+    out = torch.zeros(k + 1, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lo = (ctypes.c_longlong * max(npred, 1))(*(b[0] for b in bounds))
+    hi = (ctypes.c_longlong * max(npred, 1))(*(b[1] for b in bounds))
+    rc = _lib().tidb_range_filter_sums(
+        _ptr_array(sum_cols), k, _ptr_array(pred_cols), npred, lo, hi,
+        valid.data_ptr(), n, out.data_ptr(), stream)
+    _check_rc(rc, "range_filter_sums")
+    _launched(range_filter_sums)
+    return out[:k], out[k]
+
+
+range_filter_sums.launches = 0
+
+
+KERNELS = (masked_sums, dense_group_sums, range_filter_sums)
 
 
 def reset_launches():
