@@ -24,6 +24,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
+FLUSH_BYTES = 1 << 30           # read before each timed call (time_ms)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SF, SEED = 1.0, 7
 WARM_RUNS = 5
@@ -43,7 +44,10 @@ def time_ms(fn, iters=20, flush=None):
     """Warm median of `fn` in ms by CUDA events; `flush` (a tensor
     larger than L2) is READ before each timed launch, so the inputs come
     from device memory as a fragment's first pass finds them and the L2
-    holds no dirty lines to write back inside the timed window."""
+    holds no dirty lines to write back inside the timed window. Reading
+    FLUSH_BYTES keeps the card busy about 0.3 ms, longer than the host
+    takes to enqueue `fn`, so the window holds the card's time for the
+    call (fills, kernels, copies), not the Python before its launch."""
     import torch
     for _ in range(3):
         fn()
@@ -70,6 +74,34 @@ def sector_bytes(live, ncols=1):
     if pad:
         live = torch.cat([live, live.new_zeros(pad)])
     return 32 * ncols * int(live.view(-1, 4).any(1).sum())
+
+
+def n_distinct(cols):
+    """Distinct buffers among `cols`, as the kernels' wrappers count them
+    (scan_kernels.distinct_buffers): a bound reads each buffer once."""
+    from tidb_tpu_torch.ops.scan_kernels import distinct_buffers
+    return len(distinct_buffers(cols)[0])
+
+
+def device_ms(fn, kernel, flush, iters=10):
+    """Mean device time in ms, per call of `fn`, of the CUDA kernels whose
+    name holds `kernel`, from torch.profiler (the kernel itself: not the
+    fill of its output nor the host's launch); None when the profiler
+    saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.max()
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return sum(us) / iters / 1e3 if us else None
 
 
 def range_filter_bytes(sum_cols, pred_cols, bounds, valid):
@@ -199,28 +231,87 @@ def range_edge_cases():
     return out
 
 
+# Layouts the redesigned kernels split on, as (n, mask offset, column
+# offset, mask kind, aliasing, nslots, extreme values): ragged n around
+# the 16-byte mask vector and the 512-row chunk; views that are not
+# 16-byte aligned, alike (a common head aligns them: dense_group_sums'
+# bulk copies) and unlike (none does: its register path); masks all
+# clear, all set, set only in the last row; one buffer named twice and
+# overlapping views of one storage; k = 16 distinct columns at nslots
+# 1, 12 and 64 (the largest tables); values at +-2^62.
+LAYOUT_CASES = tuple(
+    [(n, mo, co, mk, "same", 12, False)
+     for n in (1, 15, 16, 17, 4097, 1 << 20)
+     for mo, co in ((0, 0), (1, 1), (3, 3), (1, 0), (0, 3))
+     for mk in ("random", "clear", "set", "last")] +
+    [(n, mo, co, "random", "views", 12, False)
+     for n in (17, 4097, 1 << 20) for mo, co in ((0, 0), (1, 1))] +
+    [(100_003, mo, mo, "random", "wide", ns, True)
+     for ns in (1, 12, 64) for mo in (0, 1)] +
+    [(1 << 20, 0, 0, "set", "same", 12, True),
+     (4097, 3, 3, "random", "same", 64, True)])
+
+
+def layout_case(n, moff, coff, mask_kind, alias, nslots, extreme,
+                device="cuda"):
+    """-> (cols, mask, slots, nslots) for one LAYOUT_CASES entry. Column
+    views start `coff` int64 elements, the mask `moff` bytes, into
+    fresh allocations. alias "same": [a, b, a] (a named twice); "views":
+    [a, b, b', a] with b' the view of b's storage one element on;
+    "wide": 16 distinct columns."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(n * 131 + moff * 17 + coff * 7 + nslots)
+    total = n + max(moff, coff) + 1
+
+    def vals():
+        if extreme:
+            v = rng.choice(np.array([1 << 62, -(1 << 62), (1 << 62) - 1,
+                                     1 - (1 << 62)], dtype=np.int64),
+                           total)
+        else:
+            v = rng.integers(-(1 << 40), 1 << 40, total)
+        return torch.from_numpy(v).to(device)
+    m = {"random": rng.random(total) < 0.5,
+         "clear": np.zeros(total, bool), "set": np.ones(total, bool),
+         "last": np.arange(total) == moff + n - 1}[mask_kind]
+    mask = torch.from_numpy(m).to(device)[moff:moff + n]
+    slots = torch.from_numpy(rng.integers(-2, nslots + 2, total)).to(
+        device)[coff:coff + n]
+    if alias == "wide":
+        cols = [vals()[coff:coff + n] for _ in range(16)]
+    else:
+        a, b = vals(), vals()
+        cols = [a[coff:coff + n], b[coff:coff + n]]
+        cols.append(cols[0])
+        if alias == "views":
+            cols.insert(2, b[coff + 1:coff + 1 + n])
+    return cols, mask, slots, nslots
+
+
 def edge_cases():
     """Inputs off the main path: ragged n, empty mask, negative values,
-    values beyond 2^24, slots equal to nslots and negative slots."""
+    values beyond 2^24, slots equal to nslots and negative slots; then
+    LAYOUT_CASES. A generator: the cases are built one at a time."""
     import numpy as np
     import torch
     rng = np.random.default_rng(3)
-    out = []
     for n in (1, 255, 257, 8191, 100_003):
         for k in (0, 1, 7, 16):
             vals = rng.integers(-(1 << 40), 1 << 40, (k, n))
             mask = rng.random(n) < 0.5
             slots = rng.integers(-2, 14, n)
             cols = [torch.from_numpy(v.copy()).cuda() for v in vals]
-            out.append((cols, torch.from_numpy(mask).cuda(),
-                        torch.from_numpy(slots).cuda(), 12))
+            yield (cols, torch.from_numpy(mask).cuda(),
+                   torch.from_numpy(slots).cuda(), 12)
     n = 4096
     cols = [torch.full((n,), -(1 << 50), dtype=torch.int64, device="cuda")]
-    out.append((cols, torch.zeros(n, dtype=torch.bool, device="cuda"),
-                torch.full((n,), 64, dtype=torch.int64, device="cuda"), 64))
-    out.append((cols, torch.ones(n, dtype=torch.bool, device="cuda"),
-                torch.arange(n, dtype=torch.int64, device="cuda") % 65, 64))
-    return out
+    yield (cols, torch.zeros(n, dtype=torch.bool, device="cuda"),
+           torch.full((n,), 64, dtype=torch.int64, device="cuda"), 64)
+    yield (cols, torch.ones(n, dtype=torch.bool, device="cuda"),
+           torch.arange(n, dtype=torch.int64, device="cuda") % 65, 64)
+    for case in LAYOUT_CASES:
+        yield layout_case(*case)
 
 
 def phase_kernels(parts):
@@ -253,13 +344,14 @@ def phase_kernels(parts):
         cols, slots, valid = p["q1"]
         cmp("dense_group_sums", sk.dense_group_sums(cols, slots, 12, valid),
             sk.dense_group_sums_plain(cols, slots, 12, valid))
-    cases = edge_cases()
-    for cols, mask, slots, nslots in cases:
+    ncases = 0
+    for cols, mask, slots, nslots in edge_cases():
         cmp("masked_sums", sk.masked_sums(cols, mask),
             sk.masked_sums_plain(cols, mask))
         cmp("dense_group_sums",
             sk.dense_group_sums(cols, slots, nslots, mask),
             sk.dense_group_sums_plain(cols, slots, nslots, mask))
+        ncases += 1
     rcases = range_edge_cases()
     for sums, preds, bounds, valid in rcases:
         cmp("range_filter_sums", sk.range_filter_sums(sums, preds, bounds,
@@ -267,9 +359,9 @@ def phase_kernels(parts):
             sk.range_filter_sums_plain(sums, preds, bounds, valid))
     torch.cuda.synchronize()
     log(f"kernels == plain versions on {len(parts)} main-path partitions "
-        f"and {len(cases)} + {len(rcases)} edge cases (exact int64)")
+        f"and {ncases} + {len(rcases)} edge cases (exact int64)")
 
-    flush = torch.ones(128 << 20, dtype=torch.uint8, device="cuda")
+    flush = torch.ones(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rows = []
     for p in parts:
         cols, mask = p["qsum"]
@@ -280,9 +372,12 @@ def phase_kernels(parts):
         t_p = time_ms(lambda: sk.masked_sums_plain(cols, mask), flush=flush)
         t_l = time_ms(lambda: torch.where(mask, stacked, 0).sum(1),
                       flush=flush)
-        nbytes = n + sector_bytes(mask, k) + 8 * (k + 1)
+        t_d = device_ms(lambda: sk.masked_sums(cols, mask),
+                        "masked_sums_kernel", flush)
+        # the mask in full, each distinct column where live, the outputs
+        nbytes = n + sector_bytes(mask, n_distinct(cols)) + 8 * (k + 1)
         rows.append(("masked_sums", n, k, nnz, t_k, t_p, t_l,
-                     nbytes / HBM_BYTES_PER_S * 1e3))
+                     nbytes / HBM_BYTES_PER_S * 1e3, None, t_d))
         cols, preds, bounds, valid = p["q6"]
         k = len(cols)
         nbytes, nnz = range_filter_bytes(cols, preds, bounds, valid)
@@ -292,8 +387,11 @@ def phase_kernels(parts):
             cols, preds, bounds, valid), flush=flush)
         t_r = time_ms(lambda: q6_replaced_path(cols, preds, valid),
                       flush=flush)
+        t_d = device_ms(lambda: sk.range_filter_sums(cols, preds, bounds,
+                                                     valid),
+                        "range_filter_sums_kernel", flush)
         rows.append(("range_filter_sums", n, k, nnz, t_k, t_p, None,
-                     nbytes / HBM_BYTES_PER_S * 1e3, t_r))
+                     nbytes / HBM_BYTES_PER_S * 1e3, t_r, t_d))
         cols, slots, valid = p["q1"]
         stacked = torch.stack(cols)
         k = len(cols)
@@ -308,16 +406,21 @@ def phase_kernels(parts):
         t_l = time_ms(lambda: torch.zeros((k, 13), dtype=torch.int64,
                                           device="cuda").index_add_(
             1, spill, stacked), flush=flush)
-        # valid in full, slots where valid, values where live, the table
-        nbytes = n + sector_bytes(valid) + sector_bytes(live, k) + \
-            8 * (k + 1) * 12
+        t_d = device_ms(lambda: sk.dense_group_sums(cols, slots, 12, valid),
+                        "dense_group_sums_kernel", flush)
+        # valid in full, slots where valid, each distinct value column
+        # where live (Q1 names 5 buffers in its 7 arguments), the table
+        nbytes = n + sector_bytes(valid) + \
+            sector_bytes(live, n_distinct(cols)) + 8 * (k + 1) * 12
         rows.append(("dense_group_sums", n, k, nnz, t_k, t_p, t_l,
-                     nbytes / HBM_BYTES_PER_S * 1e3))
+                     nbytes / HBM_BYTES_PER_S * 1e3, None, t_d))
     for r in rows:
         other = (f"library {r[6]:.4f} ms" if r[6] is not None else
                  f"replaced path (compares + masked_sums) {r[8]:.4f} ms")
+        dev = "not measured" if r[9] is None else f"{r[9]:.4f} ms"
         log(f"time {r[0]} n={r[1]} k={r[2]} live={r[3]}: kernel {r[4]:.4f} "
-            f"ms, plain {r[5]:.4f} ms, {other}, bound {r[7]:.4f} ms "
+            f"ms (profiler device {dev}), plain {r[5]:.4f} ms, {other}, "
+            f"bound {r[7]:.4f} ms "
             f"({r[7] * 1e-3 * HBM_BYTES_PER_S:.0f} bytes)")
     big = {}
     for r in rows:
@@ -633,9 +736,12 @@ def main():
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": err[name], "ms": r[4], "plain_ms": r[5],
-            "bound_ms": r[7], "bound_by": "bytes", "library_ms": r[6]}
+            "bound_ms": r[7], "bound_by": "bytes", "library_ms": r[6],
+            "kernel_device_ms": r[9]}
         if name == "range_filter_sums":
             rec["replaced_path_ms"] = r[8]
+        else:
+            rec["redesigned_in"] = 3
         kernels.append(rec)
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,11 +4,18 @@ statement there. This file imports nothing of tidb_tpu or jax, so it
 also runs on a machine that has the card and no JAX:
     python -m pytest tests/test_torch_cuda.py -q
 Without a CUDA device every test skips (a CUDA kernel has no CPU mode)."""
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from tidb_tpu_torch.ops import scan_kernels as sk
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import LAYOUT_CASES, layout_case  # noqa: E402
 
 pytestmark = [
     pytest.mark.cuda,
@@ -57,6 +64,23 @@ def test_kernels_match_plain_on_card(n, k, nslots):
             assert torch.equal(g, w)
     assert sk.masked_sums.launches == 1 == sk.dense_group_sums.launches
     assert sk.range_filter_sums.launches == 1
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES,
+                         ids=["-".join(map(str, c)) for c in LAYOUT_CASES])
+def test_layouts_match_plain_on_card(case):
+    """The redesigned kernels' layout paths (vector and bulk heads and
+    tails, unaligned views, aliased buffers, the largest tables, values
+    at +-2^62) equal the plain versions exactly."""
+    cols, mask, slots, nslots = layout_case(*case)
+    for got, want in ((sk.masked_sums(cols, mask),
+                       sk.masked_sums_plain(cols, mask)),
+                      (sk.dense_group_sums(cols, slots, nslots, mask),
+                       sk.dense_group_sums_plain(cols, slots, nslots, mask))):
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.equal(g, w), (g, w)
+    assert sk.masked_sums.launches == 1 == sk.dense_group_sums.launches
 
 
 def test_fused_error_fails_statement_on_card():

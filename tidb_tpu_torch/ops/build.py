@@ -2,9 +2,10 @@
 
 Each source under ops/csrc/ compiles, at its first use on a CUDA
 device, into a shared library with a plain C interface under ops/_build/
-(listed in .gitignore), named by a hash of the source and flags so an
-edited source rebuilds. The machine needs the CUDA toolkit's nvcc
-(CUDA_HOME, /usr/local/cuda, or PATH). A failed build raises
+(listed in .gitignore), named by a hash of the flags and of every source
+and header under ops/csrc/, so an edited source or header rebuilds. The
+machine needs the CUDA toolkit's nvcc (CUDA_HOME, /usr/local/cuda, or
+PATH). A failed build raises
 KernelBuildError; nothing falls back."""
 from __future__ import annotations
 
@@ -42,14 +43,24 @@ def nvcc_path() -> str:
                            "to build tidb_tpu_torch's kernels")
 
 
+def source_digest() -> str:
+    """A hash of NVCC_FLAGS and of every file under csrc/ that a build
+    can read (*.cu, *.cuh, *.h), names included."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fn in sorted(os.listdir(_SRC_DIR)):
+        if fn.endswith((".cu", ".cuh", ".h")):
+            h.update(fn.encode() + b"\0")
+            with open(os.path.join(_SRC_DIR, fn), "rb") as f:
+                h.update(f.read() + b"\0")
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> str:
     """Compile csrc/<name>.cu -> _build/lib<name>-<hash>.so if it is not
     built yet; -> the library path."""
     import time
     src = os.path.join(_SRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
+    digest = source_digest()
     so = os.path.join(_OUT_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(so):
         return so

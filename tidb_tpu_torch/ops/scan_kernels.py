@@ -19,6 +19,10 @@ tensors run the plain version, CUDA tensors launch the kernel, and a
 wrong dtype, device or shape raises. A kernel that does not build or
 whose launch is refused raises KernelError; nothing falls back.
 
+masked_sums and dense_group_sums pass each distinct column buffer to
+their kernel once (distinct_buffers: Q1's sum and avg of one column name
+one buffer) and copy its sums into every output row that names it.
+
 Each wrapper counts its kernel launches in `<wrapper>.launches`, so a
 run can show that its main path went through the kernel. The source
 notes (bounds, designs) are in scan_kernels.cu."""
@@ -32,7 +36,7 @@ import torch
 from ..errors import TiDBError
 
 MAX_COLS = 16          # kMaxCols in scan_kernels.cu
-MAX_SLOTS = 64         # kMaxSlots in scan_kernels.cu (shared-memory table)
+MAX_SLOTS = 64         # kMaxSlots in scan_kernels.cu (shared-memory tables)
 MAX_PREDS = 16         # kMaxPreds in scan_kernels.cu (kernel parameters)
 _I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
 
@@ -114,6 +118,33 @@ def _check_rc(rc, what):
         raise KernelError("%s: CUDA launch failed (cudaError %d)", what, rc)
 
 
+def distinct_buffers(cols):
+    """-> (distinct, index): the tensors of `cols` that are distinct
+    buffers, in first-seen order, and for each argument the position of
+    its buffer in `distinct`. Two arguments are one buffer when they have
+    the same data_ptr(), dtype, length and stride: an aggregate's
+    argument that is a bare column evaluates to the column itself, so
+    sum(x) and avg(x) pass one buffer twice. Views that overlap but start
+    at different offsets are different buffers."""
+    seen, distinct, index = {}, [], []
+    for c in cols:
+        key = (c.data_ptr(), c.dtype, tuple(c.shape), tuple(c.stride()))
+        if key not in seen:
+            seen[key] = len(distinct)
+            distinct.append(c)
+        index.append(seen[key])
+    return distinct, index
+
+
+def _expand(rows, index):
+    """The per-argument rows of a result computed over the distinct
+    buffers: rows[:k] itself when no argument repeats a buffer, else one
+    copy (torch.stack) with each buffer's row wherever it is named."""
+    if index == list(range(len(index))):
+        return rows[:len(index)]
+    return torch.stack([rows[i] for i in index])
+
+
 # ---- masked_sums ----------------------------------------------------
 
 def masked_sums_plain(columns, mask):
@@ -139,18 +170,20 @@ def masked_sums(columns, mask):
         raise ValueError(f"masked_sums takes at most {MAX_COLS} columns")
     for j, c in enumerate(columns):
         _check_vec(f"columns[{j}]", c, torch.int64, n, dev)
+    distinct, index = distinct_buffers(columns)
     if dev.type == "cpu":
-        return masked_sums_plain(columns, mask)
+        sums, count = masked_sums_plain(distinct, mask)
+        return _expand(sums, index), count
     if dev.type != "cuda":
         raise ValueError(f"masked_sums: unsupported device {dev}")
-    k = len(columns)
+    k = len(distinct)
     out = torch.zeros(k + 1, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().tidb_masked_sums(_ptr_array(columns), k, mask.data_ptr(),
+    rc = _lib().tidb_masked_sums(_ptr_array(distinct), k, mask.data_ptr(),
                                  n, out.data_ptr(), stream)
     _check_rc(rc, "masked_sums")
     _launched(masked_sums)
-    return out[:k], out[k]
+    return _expand(out, index), out[k]
 
 
 masked_sums.launches = 0
@@ -192,19 +225,21 @@ def dense_group_sums(value_cols, slots, nslots, valid):
     _check_vec("valid", valid, torch.bool, n, dev)
     for j, c in enumerate(value_cols):
         _check_vec(f"value_cols[{j}]", c, torch.int64, n, dev)
+    distinct, index = distinct_buffers(value_cols)
     if dev.type == "cpu":
-        return dense_group_sums_plain(value_cols, slots, nslots, valid)
+        sums, counts = dense_group_sums_plain(distinct, slots, nslots, valid)
+        return _expand(sums, index), counts
     if dev.type != "cuda":
         raise ValueError(f"dense_group_sums: unsupported device {dev}")
-    k = len(value_cols)
+    k = len(distinct)
     out = torch.zeros((k + 1, nslots), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().tidb_dense_group_sums(
-        _ptr_array(value_cols), k, slots.data_ptr(), valid.data_ptr(), n,
+        _ptr_array(distinct), k, slots.data_ptr(), valid.data_ptr(), n,
         nslots, out.data_ptr(), stream)
     _check_rc(rc, "dense_group_sums")
     _launched(dense_group_sums)
-    return out[:k], out[k]
+    return _expand(out, index), out[k]
 
 
 dense_group_sums.launches = 0
