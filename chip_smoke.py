@@ -4,7 +4,8 @@ times them, then runs TPC-H Q6, Q1 and a global aggregate without range
 filters at SF1 from SQL to rows through the package's normal entry point
 (TestKit on the card), and the same three again through the package's
 MySQL wire server, with a raw-socket client. Each kernel's launches are
-counted per path.
+counted per path, and so are the product pairs Q6 folds into
+range_filter_sums (one per partition and statement).
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one
 CUDA device and the CUDA toolkit (nvcc), and exits non-zero, printing no
@@ -85,9 +86,10 @@ def n_distinct(cols):
 
 def device_ms(fn, kernel, flush, iters=10):
     """Mean device time in ms, per call of `fn`, of the CUDA kernels whose
-    name holds `kernel`, from torch.profiler (the kernel itself: not the
-    fill of its output nor the host's launch); None when the profiler
-    saw no device activity."""
+    name holds `kernel` (a string, or a tuple of strings, any of them),
+    from torch.profiler (the kernel itself: not the fill of its output
+    nor the host's launch); None when the profiler saw no device
+    activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -99,23 +101,33 @@ def device_ms(fn, kernel, flush, iters=10):
             flush.max()
             fn()
         torch.cuda.synchronize()
+    names = (kernel,) if isinstance(kernel, str) else kernel
     us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
+          if e.device_type == DeviceType.CUDA and
+          any(k in e.name for k in names)]
     return sum(us) / iters / 1e3 if us else None
 
 
-def range_filter_bytes(sum_cols, pred_cols, bounds, valid):
+def range_filter_bytes(sum_cols, pred_cols, bounds, valid, products=()):
     """range_filter_sums' bytes on this run's data: valid in full; each
-    predicate column at the rows that passed valid and every earlier
-    predicate (a thread stops at the first test that fails); the sum
-    columns at the rows that passed all; the k + 1 outputs. -> (bytes,
-    live rows)."""
+    distinct predicate column at the rows that passed valid and every
+    earlier predicate (a warp reads a column only for rows still live);
+    each distinct operand buffer that is no predicate's (sum columns,
+    product operands) at the rows that passed all; the k + 1 outputs.
+    -> (bytes, live rows)."""
+    from tidb_tpu_torch.ops.scan_kernels import distinct_buffers
     live = valid
     nbytes = valid.numel()
-    for c, (lo, hi) in zip(pred_cols, bounds):
-        nbytes += sector_bytes(live)
+    _, pidx = distinct_buffers(pred_cols)
+    for p, (c, (lo, hi)) in enumerate(zip(pred_cols, bounds)):
+        if pidx[p] not in pidx[:p]:          # a buffer's first test
+            nbytes += sector_bytes(live)
         live = live & (c >= lo) & (c <= hi)
-    nbytes += sector_bytes(live, len(sum_cols)) + 8 * (len(sum_cols) + 1)
+    operands = list(sum_cols) + [t for pair in products for t in pair]
+    n_pred = n_distinct(pred_cols)
+    n_ops = n_distinct(list(pred_cols) + operands) - n_pred
+    k = len(sum_cols) + len(products)
+    nbytes += sector_bytes(live, n_ops) + 8 * (k + 1)
     return nbytes, int(live.sum())
 
 
@@ -149,8 +161,8 @@ def main_path_inputs(tk):
     """The kernels' inputs per fact partition, built on the card from the
     loaded lineitem the way the fused fragment builds them: Q6's
     (range_filter_sums, with the bounds copr/range_lowering.py derives
-    from Q6's five filters), QSUM's (masked_sums) and Q1's
-    (dense_group_sums)."""
+    from Q6's five filters and its folded product pair), QSUM's
+    (masked_sums) and Q1's (dense_group_sums)."""
     import numpy as np
     import torch
     from tidb_tpu_torch.chunk.device import shape_bucket
@@ -184,29 +196,42 @@ def main_path_inputs(tk):
         q1_slots = torch.where(q1_valid, (rf + 1) * 3 + (ls + 1), 12)
         parts.append({
             "n": cap,
-            "q6": ([price * disc], [ship, disc, qty], q6_bounds, valid),
+            "q6": ([], [ship, disc, qty], q6_bounds, valid,
+                   [(price, disc)]),
             "qsum": ([qty, price], valid & (rf == r_code)),
             "q1": ([qty, price, disc_price, disc_price * (100 + tax), qty,
                     price, disc], q1_slots, q1_valid)})
     return parts
 
 
-def q6_replaced_path(sum_cols, pred_cols, valid):
-    """What Q6's fragment ran before range_filter_sums: the evaluator's
-    five compares ANDed into valid, then masked_sums."""
+def q6_replaced_path(sum_cols, pred_cols, bounds, valid, products):
+    """What Q6's fragment ran before the fold: the elementwise product
+    pass, then range_filter_sums on the product column."""
+    from tidb_tpu_torch.ops import scan_kernels as sk
+    return sk.range_filter_sums(sum_cols + [a * b for a, b in products],
+                                pred_cols, bounds, valid)
+
+
+def q6_literal_path(sum_cols, pred_cols, bounds, valid, products):
+    """Q6's five filters as its SQL writes them, ANDed into valid, then
+    masked_sums with each pair's product a torch column: a check of the
+    lowered bounds and of the fold that shares no code with
+    range_filter_sums (`bounds` is not read)."""
     from tidb_tpu_torch.ops import scan_kernels as sk
     from tidb_tpu_torch.types.time_types import parse_date
     ship, disc, qty = pred_cols
     mask = valid & (ship >= parse_date("1994-01-01")) & \
         (ship < parse_date("1995-01-01")) & (disc >= 5) & (disc <= 7) & \
         (qty < 2400)
-    return sk.masked_sums(sum_cols, mask)
+    return sk.masked_sums(sum_cols + [a * b for a, b in products], mask)
 
 
 def range_edge_cases():
     """range_filter_sums inputs off the main path: ragged n, k 0..16,
     npred 1..16, empty ranges, bounds at INT64_MIN/MAX, values at the
-    int64 extremes, beyond 2^24 and negative."""
+    int64 extremes, beyond 2^24 and negative; product pairs (up to two,
+    within 16 terms) of a predicate column and a sum column, and of a sum
+    column with itself (wrapping int64)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(5)
@@ -227,7 +252,11 @@ def range_edge_cases():
                                    (b + 1, a), (I64_MIN, I64_MAX)][
                                        (p + k + n) % 5])
                 valid = torch.from_numpy(rng.random(n) < 0.9).cuda()
-                out.append((sums, preds, bounds, valid))
+                pairs = [(preds[-1], sums[0] if k else preds[0])]
+                if k:
+                    pairs.append((sums[-1], sums[-1]))
+                out.append((sums, preds, bounds, valid,
+                            pairs[:16 - k]))
     return out
 
 
@@ -314,6 +343,37 @@ def edge_cases():
         yield layout_case(*case)
 
 
+RANGE_NPREDS = (0, 1, 3, 16)
+
+
+def range_layout_case(n, moff, coff, mask_kind, alias, nslots, extreme,
+                      npred, device="cuda"):
+    """-> (sum_cols, pred_cols, bounds, valid, products) of
+    range_filter_sums for one LAYOUT_CASES entry and a predicate count,
+    from layout_case's views and mask. Predicate p tests view p of
+    [slots, *cols] (slots in [0, nslots // 2], a column where it is above
+    -2^39, or above 1 - 2^62 for extreme values: about 3/4 of the rows);
+    predicates past the distinct views test the full range. The sums are
+    the first two columns (eight for "wide"); the products pair column 1
+    with predicate 1's column (an operand that is a predicate's) and the
+    last column with itself (wrapping int64 at +-2^62); "wide" pairs
+    columns 8..15 (16 terms)."""
+    cols, mask, slots, _ = layout_case(n, moff, coff, mask_kind, alias,
+                                       nslots, extreme, device)
+    views = [slots] + cols
+    floor = 1 - (1 << 62) if extreme else -(1 << 39)
+    preds, bounds = [], []
+    for p in range(npred):
+        preds.append(views[p % len(views)])
+        bounds.append((0, nslots // 2) if p == 0 else (floor, I64_MAX)
+                      if p < len(views) else (I64_MIN, I64_MAX))
+    if alias == "wide":
+        return cols[:8], preds, bounds, mask, [(cols[8 + i], cols[15 - i])
+                                               for i in range(8)]
+    return cols[:2], preds, bounds, mask, [(cols[1], views[1]),
+                                           (cols[-1], cols[-1])]
+
+
 def phase_kernels(parts):
     """Each kernel == its plain version (exact int64) at the main-path
     shapes and on the edge cases; then timings at the largest
@@ -336,11 +396,11 @@ def phase_kernels(parts):
         cols, mask = p["qsum"]
         cmp("masked_sums", sk.masked_sums(cols, mask),
             sk.masked_sums_plain(cols, mask))
-        cols, preds, bounds, valid = p["q6"]
-        got = sk.range_filter_sums(cols, preds, bounds, valid)
-        cmp("range_filter_sums", got,
-            sk.range_filter_sums_plain(cols, preds, bounds, valid))
-        cmp("range_filter_sums", got, q6_replaced_path(cols, preds, valid))
+        q6 = p["q6"]
+        got = sk.range_filter_sums(*q6)
+        cmp("range_filter_sums", got, sk.range_filter_sums_plain(*q6))
+        cmp("range_filter_sums", got, q6_replaced_path(*q6))
+        cmp("range_filter_sums", got, q6_literal_path(*q6))
         cols, slots, valid = p["q1"]
         cmp("dense_group_sums", sk.dense_group_sums(cols, slots, 12, valid),
             sk.dense_group_sums_plain(cols, slots, 12, valid))
@@ -353,10 +413,12 @@ def phase_kernels(parts):
             sk.dense_group_sums_plain(cols, slots, nslots, mask))
         ncases += 1
     rcases = range_edge_cases()
-    for sums, preds, bounds, valid in rcases:
-        cmp("range_filter_sums", sk.range_filter_sums(sums, preds, bounds,
-                                                      valid),
-            sk.range_filter_sums_plain(sums, preds, bounds, valid))
+    for case in LAYOUT_CASES:
+        for npred in RANGE_NPREDS:
+            rcases.append(range_layout_case(*case, npred))
+    for case in rcases:
+        cmp("range_filter_sums", sk.range_filter_sums(*case),
+            sk.range_filter_sums_plain(*case))
     torch.cuda.synchronize()
     log(f"kernels == plain versions on {len(parts)} main-path partitions "
         f"and {ncases} + {len(rcases)} edge cases (exact int64)")
@@ -378,18 +440,14 @@ def phase_kernels(parts):
         nbytes = n + sector_bytes(mask, n_distinct(cols)) + 8 * (k + 1)
         rows.append(("masked_sums", n, k, nnz, t_k, t_p, t_l,
                      nbytes / HBM_BYTES_PER_S * 1e3, None, t_d))
-        cols, preds, bounds, valid = p["q6"]
-        k = len(cols)
-        nbytes, nnz = range_filter_bytes(cols, preds, bounds, valid)
-        t_k = time_ms(lambda: sk.range_filter_sums(cols, preds, bounds,
-                                                   valid), flush=flush)
-        t_p = time_ms(lambda: sk.range_filter_sums_plain(
-            cols, preds, bounds, valid), flush=flush)
-        t_r = time_ms(lambda: q6_replaced_path(cols, preds, valid),
-                      flush=flush)
-        t_d = device_ms(lambda: sk.range_filter_sums(cols, preds, bounds,
-                                                     valid),
-                        "range_filter_sums_kernel", flush)
+        q6 = p["q6"]
+        k = len(q6[0]) + len(q6[4])
+        nbytes, nnz = range_filter_bytes(*q6)
+        t_k = time_ms(lambda: sk.range_filter_sums(*q6), flush=flush)
+        t_p = time_ms(lambda: sk.range_filter_sums_plain(*q6), flush=flush)
+        t_r = time_ms(lambda: q6_replaced_path(*q6), flush=flush)
+        t_d = device_ms(lambda: sk.range_filter_sums(*q6),
+                        "range_filter_sums", flush)
         rows.append(("range_filter_sums", n, k, nnz, t_k, t_p, None,
                      nbytes / HBM_BYTES_PER_S * 1e3, t_r, t_d))
         cols, slots, valid = p["q1"]
@@ -416,7 +474,8 @@ def phase_kernels(parts):
                      nbytes / HBM_BYTES_PER_S * 1e3, None, t_d))
     for r in rows:
         other = (f"library {r[6]:.4f} ms" if r[6] is not None else
-                 f"replaced path (compares + masked_sums) {r[8]:.4f} ms")
+                 f"replaced path (product pass + unfolded kernel) "
+                 f"{r[8]:.4f} ms")
         dev = "not measured" if r[9] is None else f"{r[9]:.4f} ms"
         log(f"time {r[0]} n={r[1]} k={r[2]} live={r[3]}: kernel {r[4]:.4f} "
             f"ms (profiler device {dev}), plain {r[5]:.4f} ms, {other}, "
@@ -429,11 +488,11 @@ def phase_kernels(parts):
     return err, big
 
 
-# (query, kernel its statements must launch once per partition or more,
-# kernels they must not launch)
-SQL_CASES = (("q6", "range_filter_sums", ("masked_sums",)),
-             ("q1", "dense_group_sums", ()),
-             ("qsum", "masked_sums", ("range_filter_sums",)))
+# (query, kernel its statements must launch once per partition,
+# kernels they must not launch, product pairs folded per partition)
+SQL_CASES = (("q6", "range_filter_sums", ("masked_sums",), 1),
+             ("q1", "dense_group_sums", (), 0),
+             ("qsum", "masked_sums", ("range_filter_sums",), 0))
 
 # domain counters, visible from every thread: a statement that takes the
 # fused device path adds 1 to the first and 0 to the others
@@ -455,8 +514,17 @@ def sql_and_rows(tk, exp, q):
     return sql, want
 
 
-def check_route(q, run, dom, m0, kern, l0, nparts, absent, a0):
-    """The statement took the fused device path through `kern`."""
+def check_route(q, run, dom, m0, kern, l0, nparts, absent, a0, pairs,
+                pairs0):
+    """The statement took the fused device path through kernel `kern`
+    (its count went from l0) and not through the kernels named in
+    `absent` (from a0), and folded `pairs` product pairs into
+    range_filter_sums per partition (the count went from pairs0)."""
+    from tidb_tpu_torch.ops import scan_kernels as sk
+    folded = sk.COUNTS["product_pairs"] - pairs0
+    if folded != pairs * nparts:
+        fail(f"{q} {run}: folded {folded} product pairs, expected "
+             f"{pairs} per partition")
     d = {c: dom.metrics.get(c, 0) - m0[c] for c in ROUTE_COUNTERS}
     if d["fused_pipeline_hit"] != 1:
         fail(f"{q} {run}: did not take the fused device path "
@@ -464,12 +532,12 @@ def check_route(q, run, dom, m0, kern, l0, nparts, absent, a0):
     for c in ROUTE_COUNTERS[1:]:
         if d[c]:
             fail(f"{q} {run}: {c} = {d[c]}")
-    if kern.launches - l0 < nparts:
-        fail(f"{q} {run}: {kern.__name__} launched {kern.launches - l0} "
-             f"times, < {nparts} partitions")
-    for fn, n0 in zip(absent, a0):
-        if fn.launches != n0:
-            fail(f"{q} {run}: {fn.__name__} launched {fn.launches - n0} "
+    if sk.COUNTS[kern] - l0 != nparts:
+        fail(f"{q} {run}: {kern} launched {sk.COUNTS[kern] - l0} "
+             f"times, not once per partition ({nparts})")
+    for name, n0 in zip(absent, a0):
+        if sk.COUNTS[name] != n0:
+            fail(f"{q} {run}: {name} launched {sk.COUNTS[name] - n0} "
                  "times")
 
 
@@ -483,22 +551,21 @@ def phase_sql(tk, exp, nparts):
     nrows = dom.columnar.tables[
         dom.infoschema().table_by_name("test", "lineitem").id].n
     meds = {}
-    for q, kname, absent_names in SQL_CASES:
+    for q, kname, absent_names, pairs in SQL_CASES:
         sql, want = sql_and_rows(tk, exp, q)
-        kern = getattr(sk, kname)
-        absent = [getattr(sk, a) for a in absent_names]
         warm = []
         for i in range(1 + WARM_RUNS):
             m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS}
-            l0, a0 = kern.launches, [fn.launches for fn in absent]
+            l0, a0 = sk.COUNTS[kname], [sk.COUNTS[a] for a in absent_names]
+            pairs0 = sk.COUNTS["product_pairs"]
             t0 = time.perf_counter()
             got = tk.must_query(sql)._norm()
             ms = (time.perf_counter() - t0) * 1e3
             snap = phase.snap()
             if got != want:
                 fail(f"{q} run {i}: rows {got} != expected {want}")
-            check_route(q, f"run {i}", dom, m0, kern, l0, nparts, absent,
-                        a0)
+            check_route(q, f"run {i}", dom, m0, kname, l0, nparts,
+                        absent_names, a0, pairs, pairs0)
             for c in ("device_fallbacks", "fused_fallbacks", "host_execs"):
                 if snap.get(c, 0):
                     fail(f"{q} run {i}: {c} = {snap[c]}")
@@ -512,7 +579,8 @@ def phase_sql(tk, exp, nparts):
                 f"syncs={snap.get('syncs', 0)} "
                 f"upload_bytes={snap.get('upload_bytes', 0)} "
                 f"mask_upload_bytes={snap.get('mask_upload_bytes', 0)} "
-                f"launches={kern.launches - l0}")
+                f"launches={sk.COUNTS[kname] - l0} product_pairs="
+                f"{sk.COUNTS['product_pairs'] - pairs0}")
         meds[q] = statistics.median(warm)
         log(f"sql {q}: rows == numpy oracle{' == expected' if q in exp else ''}"
             f" ({len(want)} rows); warm median {meds[q]:.3f} ms, "
@@ -655,24 +723,23 @@ def phase_wire(tk, exp, nparts, testkit_meds):
             for q, run in [("q6", i) for i in range(1 + WARM_RUNS)] + \
                     [("q1", 0), ("qsum", 0)]:
                 sql, want = sql_and_rows(tk, exp, q)
-                _q, kname, absent_names = next(c for c in SQL_CASES
-                                               if c[0] == q)
-                kern = getattr(sk, kname)
-                absent = [getattr(sk, a) for a in absent_names]
+                _q, kname, absent_names, pairs = next(c for c in SQL_CASES
+                                                      if c[0] == q)
                 m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS}
-                l0, a0 = kern.launches, [fn.launches for fn in absent]
+                l0, a0 = sk.COUNTS[kname], [sk.COUNTS[a] for a in absent_names]
+                pairs0 = sk.COUNTS["product_pairs"]
                 t0 = time.perf_counter()
                 got = client.query(sql)["rows"]
                 ms = (time.perf_counter() - t0) * 1e3
                 if got != want:
                     fail(f"wire {q} run {run}: rows {got} != expected "
                          f"{want}")
-                check_route(f"wire {q}", f"run {run}", dom, m0, kern, l0,
-                            nparts, absent, a0)
+                check_route(f"wire {q}", f"run {run}", dom, m0, kname, l0,
+                            nparts, absent_names, a0, pairs, pairs0)
                 if q == "q6" and run > 0:
                     warm.append(ms)
                 log(f"wire {q} {'first' if run == 0 else 'warm'} "
-                    f"{ms:.2f} ms launches={kern.launches - l0}")
+                    f"{ms:.2f} ms launches={sk.COUNTS[kname] - l0}")
         finally:
             client.close()
     finally:
@@ -710,19 +777,24 @@ def main():
     torch.cuda.empty_cache()
     # each path's launches: counts set to 0 just before it, read just
     # after; the kernel phase's launches count on neither
-    by_path = {}
+    by_path, pairs_by_path = {}, {}
 
     def counted(path, run):
         sk.reset_launches()
         out = run()
-        by_path[path] = {fn.__name__: fn.launches for fn in sk.KERNELS}
+        by_path[path] = {fn.__name__: sk.COUNTS[fn.__name__]
+                         for fn in sk.KERNELS}
+        pairs_by_path[path] = sk.COUNTS["product_pairs"]
         for name, n in by_path[path].items():
             if n == 0:
                 fail(f"{name} was not launched on the {path} path")
+        if pairs_by_path[path] == 0:
+            fail(f"no product pair was folded on the {path} path")
         return out
     meds = counted("sql", lambda: phase_sql(tk, exp, nparts))
     counted("wire", lambda: phase_wire(tk, exp, nparts, meds))
-    log(f"launches by path: {json.dumps(by_path)}")
+    log(f"launches by path: {json.dumps(by_path)}; folded product pairs "
+        f"by path: {json.dumps(pairs_by_path)}")
     replaces = {"masked_sums": "tidb_tpu/ops/pallas_scan.py:75",
                 "dense_group_sums": "tidb_tpu/ops/pallas_scan.py:219",
                 "range_filter_sums": "tidb_tpu/ops/pallas_scan.py:146"}
@@ -738,10 +810,10 @@ def main():
             "max_abs_err": err[name], "ms": r[4], "plain_ms": r[5],
             "bound_ms": r[7], "bound_by": "bytes", "library_ms": r[6],
             "kernel_device_ms": r[9]}
+        rec["redesigned_in"] = 4 if name == "range_filter_sums" else 3
         if name == "range_filter_sums":
             rec["replaced_path_ms"] = r[8]
-        else:
-            rec["redesigned_in"] = 3
+            rec["product_pairs_by_path"] = pairs_by_path
         kernels.append(rec)
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

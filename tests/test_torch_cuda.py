@@ -1,6 +1,6 @@
 """tidb_tpu_torch on a CUDA card: the three scan kernels against their plain
-PyTorch versions, and the rule that a failed fused fragment fails its
-statement there. This file imports nothing of tidb_tpu or jax, so it
+PyTorch versions (range_filter_sums with folded product pairs too), and
+the rule that a failed fused fragment fails its statement there. This file imports nothing of tidb_tpu or jax, so it
 also runs on a machine that has the card and no JAX:
     python -m pytest tests/test_torch_cuda.py -q
 Without a CUDA device every test skips (a CUDA kernel has no CPU mode)."""
@@ -15,7 +15,8 @@ from tidb_tpu_torch.ops import scan_kernels as sk
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-from chip_smoke import LAYOUT_CASES, layout_case  # noqa: E402
+from chip_smoke import (LAYOUT_CASES, RANGE_NPREDS, layout_case,  # noqa: E402
+                        range_layout_case)
 
 pytestmark = [
     pytest.mark.cuda,
@@ -62,8 +63,8 @@ def test_kernels_match_plain_on_card(n, k, nslots):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    assert sk.masked_sums.launches == 1 == sk.dense_group_sums.launches
-    assert sk.range_filter_sums.launches == 1
+    assert sk.COUNTS["masked_sums"] == 1 == sk.COUNTS["dense_group_sums"]
+    assert sk.COUNTS["range_filter_sums"] == 1
 
 
 @pytest.mark.parametrize("case", LAYOUT_CASES,
@@ -71,16 +72,23 @@ def test_kernels_match_plain_on_card(n, k, nslots):
 def test_layouts_match_plain_on_card(case):
     """The redesigned kernels' layout paths (vector and bulk heads and
     tails, unaligned views, aliased buffers, the largest tables, values
-    at +-2^62) equal the plain versions exactly."""
+    at +-2^62; range_filter_sums at 0, 1, 3 and 16 predicates with
+    product pairs, one of them on a predicate's column, wrapping) equal
+    the plain versions exactly."""
     cols, mask, slots, nslots = layout_case(*case)
-    for got, want in ((sk.masked_sums(cols, mask),
-                       sk.masked_sums_plain(cols, mask)),
-                      (sk.dense_group_sums(cols, slots, nslots, mask),
-                       sk.dense_group_sums_plain(cols, slots, nslots, mask))):
+    runs = [(sk.masked_sums(cols, mask), sk.masked_sums_plain(cols, mask)),
+            (sk.dense_group_sums(cols, slots, nslots, mask),
+             sk.dense_group_sums_plain(cols, slots, nslots, mask))]
+    for npred in RANGE_NPREDS:
+        rc = range_layout_case(*case, npred)
+        runs.append((sk.range_filter_sums(*rc),
+                     sk.range_filter_sums_plain(*rc)))
+    for got, want in runs:
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert g.shape == w.shape and torch.equal(g, w), (g, w)
-    assert sk.masked_sums.launches == 1 == sk.dense_group_sums.launches
+    assert sk.COUNTS["masked_sums"] == 1 == sk.COUNTS["dense_group_sums"]
+    assert sk.COUNTS["range_filter_sums"] == len(RANGE_NPREDS)
 
 
 def test_fused_error_fails_statement_on_card():

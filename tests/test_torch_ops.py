@@ -124,4 +124,4 @@ def test_wrappers_raise_on_bad_inputs():
         sk.dense_group_sums([ok_col], ok_col, sk.MAX_SLOTS + 1, ok_mask)
     with pytest.raises(TypeError):
         sk.dense_group_sums([ok_col], ok_col.to(torch.int32), 4, ok_mask)
-    assert sk.masked_sums.launches == 0 == sk.dense_group_sums.launches
+    assert sk.COUNTS["masked_sums"] == 0 == sk.COUNTS["dense_group_sums"]

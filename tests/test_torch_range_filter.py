@@ -1,25 +1,38 @@
-"""range_filter_sums and the range lowering of tidb_tpu_torch.
+"""range_filter_sums, the range lowering and the product fold of
+tidb_tpu_torch.
 
 The wrapper (on the CPU it runs its plain PyTorch version) against
 tidb_tpu.ops.range_filter_sums in interpret mode, as tests/test_ops.py
 runs it, and against a numpy oracle for the shapes the JAX entry point
 cannot take (it stacks its inputs, so k = 0 or npred = 0 fails there).
-All comparisons are exact: the function is int64 sums.
+Product pairs reach the JAX kernel as their numpy product, a sum
+column. All comparisons are exact: the function is int64 sums.
 
 copr/range_lowering.py: for every accepted comparison form the bound
 [lo, hi] selects exactly the rows that the expression evaluator's
 eval_bool_mask selects, on columns that hold the constant and its
 neighbours, the type's extremes and seeded values; every declined form
-lowers to None."""
+lowers to None.
+
+copr/dag_exec.py's fold: which aggregate arguments pass as product pairs
+(fold_pairs), the same states as the evaluator's route for each, and
+Q6 through the port folding its product at SF0.05."""
 import numpy as np
 import pytest
 import torch
 
 from tidb_tpu.ops import range_filter_sums as jax_range_filter_sums
+from tidb_tpu.testkit import TestKit as RefKit
+from tidb_tpu.bench import tpch as ref_tpch
+from tidb_tpu_torch.bench import tpch as port_tpch
+from tidb_tpu_torch.copr import dag_exec
 from tidb_tpu_torch.copr.range_lowering import (filter_bound,
                                                 lower_filters, EMPTY)
 from tidb_tpu_torch.expression import EvalCtx, eval_bool_mask
-from tidb_tpu_torch.expression.expr import Column, Constant, ScalarFunc
+from tidb_tpu_torch.expression.expr import (AggDesc, Column, Constant,
+                                            ScalarFunc)
+from tidb_tpu_torch.expression.torch_ns import TorchNS
+from tidb_tpu_torch.testkit import TestKit as PortKit
 from tidb_tpu_torch.ops import scan_kernels as sk
 from tidb_tpu_torch.types.datum import Datum, Kind
 from tidb_tpu_torch.types.field_type import (
@@ -123,6 +136,54 @@ def test_range_filter_sums_zero_and_wide_shapes(n, k, npred):
         _oracle(sums, preds, bounds, valid)
 
 
+# (name, n, k, npred, pairs): each pair (x, y) names a sum column "s<j>"
+# or a predicate column "p<j>"; "w<j>" is a column of values near 2^62,
+# whose products wrap int64
+PRODUCT_CASES = [
+    ("q6_shape", 20000, 0, 3, [("w0", "p1")]),
+    ("sum_and_product", 8193, 2, 2, [("s0", "s1"), ("s1", "p0")]),
+    ("wrapping_squares", 8191, 1, 1, [("w0", "w0"), ("w1", "w0")]),
+    ("operand_is_pred_0", 1, 1, 3, [("p0", "s0")]),
+    ("both_operands_preds", 20000, 0, 4, [("p2", "p3"), ("p3", "p2")]),
+    ("no_predicates", 8193, 1, 0, [("s0", "w0")]),
+    ("widest", 4096, 8, 16, [("s%d" % j, "p%d" % j) for j in range(8)]),
+]
+
+
+@pytest.mark.parametrize("name,n,k,npred,pairs", PRODUCT_CASES,
+                         ids=[c[0] for c in PRODUCT_CASES])
+def test_range_filter_sums_products_match_pallas(name, n, k, npred, pairs):
+    """The sums of wrapped int64 products a * b, after the sum columns,
+    equal the JAX kernel's sums of the numpy product columns."""
+    sums, preds, bounds, valid = _inputs(n, k, npred, n + 3 * k + npred)
+    rng = np.random.default_rng(n + k)
+    wide = [rng.integers((1 << 62) - (1 << 20), 1 << 62, n) *
+            rng.choice([-1, 1], n) for _ in range(2)]
+    arrays = {**{f"s{j}": c for j, c in enumerate(sums)},
+              **{f"p{j}": c for j, c in enumerate(preds)},
+              **{f"w{j}": c for j, c in enumerate(wide)}}
+    tensors = {key: _t(v) for key, v in arrays.items()}
+    with np.errstate(over="ignore"):
+        prods = [arrays[x] * arrays[y] for x, y in pairs]
+    got_s, got_c = sk.range_filter_sums(
+        [tensors[f"s{j}"] for j in range(k)],
+        [tensors[f"p{j}"] for j in range(npred)], bounds, _t(valid),
+        [(tensors[x], tensors[y]) for x, y in pairs])
+    assert got_s.shape == (k + len(pairs),)
+    got = ([int(x) for x in got_s], int(got_c))
+    assert sk.COUNTS["product_pairs"] == len(pairs)
+    assert sk.COUNTS["range_filter_sums"] == 0
+    with np.errstate(over="ignore"):
+        oracle = _oracle(sums + prods, preds, bounds, valid)
+        want = oracle
+        if npred:
+            want_s, want_c = jax_range_filter_sums(sums + prods, preds,
+                                                   bounds, valid,
+                                                   interpret=True)
+            want = ([int(x) for x in np.asarray(want_s)], int(want_c))
+    assert got == want == oracle
+
+
 def test_range_filter_sums_raises_on_bad_inputs():
     n = 16
     col = torch.zeros(n, dtype=torch.int64)
@@ -149,7 +210,7 @@ def test_range_filter_sums_raises_on_bad_inputs():
         rfs([col], [col, col], [(0, 1)], valid)
     with pytest.raises(ValueError):
         rfs([col], [col], [(0, I64_MAX + 1)], valid)
-    assert rfs.launches == 0
+    assert sk.COUNTS["range_filter_sums"] == 0
 
 
 # ---- the range lowering ------------------------------------------------
@@ -357,3 +418,108 @@ DECLINED = [
 def test_lowering_declines(name, expr):
     assert filter_bound(expr) is None
     assert lower_filters([expr]) is None
+
+
+# ---- the product fold (copr/dag_exec.py) --------------------------------
+
+DEC304 = new_decimal_type(30, 4)
+
+
+def _fold_ctx(n, nullable):
+    """An EvalCtx over CPU tensors: 0 price, 1 discount, 2 quantity
+    (decimal(15, 2)), 3 shipdate, 4 a double, 5 a bigint; `nullable`:
+    the indexes that carry a null mask."""
+    rng = np.random.default_rng(n)
+    data = {0: rng.integers(90_000, 10_000_000, n),
+            1: rng.integers(0, 11, n), 2: rng.integers(100, 5100, n),
+            3: rng.integers(8000, 10500, n), 4: rng.random(n) * 100,
+            5: rng.integers(-(1 << 40), 1 << 40, n)}
+    cols = {}
+    for i, d in data.items():
+        nl = _t(rng.random(n) < 0.1) if i in nullable else None
+        cols[i] = (_t(d), nl, None)
+    return EvalCtx(TorchNS("cpu"), n, cols, host=False)
+
+
+_FOLD_COLS = {0: DEC152, 1: DEC152, 2: DEC152, 3: new_date_type(),
+              4: new_double_type(), 5: new_bigint_type()}
+
+
+def _c(i):
+    return _col(_FOLD_COLS[i], i)
+
+
+def _mul(a, b, ft):
+    return ScalarFunc("*", [a, b], ft)
+
+
+# (name, aggregates, the fold pairs expected, nullable columns)
+FOLD_CASES = [
+    ("q6", [AggDesc("sum", [_mul(_c(0), _c(1), DEC304)])], [(0, 1)], ()),
+    ("q6_with_sum_avg_count",
+     [AggDesc("avg", [_mul(_c(1), _c(0), DEC304)]), AggDesc("sum", [_c(2)]),
+      AggDesc("count", []), AggDesc("sum", [_mul(_c(5), _c(1),
+                                                 new_decimal_type(30, 2))])],
+     [(1, 0), None, None, (5, 1)], ()),
+    ("rescaled_decimal", [AggDesc("sum", [_mul(_c(0), _c(1), DEC152)])],
+     [None], ()),
+    ("nullable_operand", [AggDesc("sum", [_mul(_c(0), _c(1), DEC304)])],
+     [(0, 1)], (0,)),
+    ("float_operand", [AggDesc("sum", [_mul(_c(4), _c(1),
+                                            new_double_type())])],
+     [None], ()),
+    ("expression_operand",
+     [AggDesc("sum", [_mul(ScalarFunc("+", [_c(0), _c(1)], DEC152), _c(1),
+                           DEC304)])], [None], ()),
+    ("count", [AggDesc("count", [_mul(_c(0), _c(1), DEC304)])], [None], ()),
+]
+
+
+@pytest.mark.parametrize("name,aggs,pairs,nullable", FOLD_CASES,
+                         ids=[c[0] for c in FOLD_CASES])
+def test_fold_rule_gives_the_evaluator_states(name, aggs, pairs, nullable):
+    """fold_pairs folds a `*` of two bare int/decimal columns whose
+    product needs no rescale (Q6's), and declines a rescaled decimal
+    product, a float or expression operand and count; a nullable operand
+    declines at run time. Every case gives the states of the evaluator's
+    route (compares, then the plain reductions)."""
+    n = 5000
+    assert dag_exec.fold_pairs(aggs) == pairs
+    ranges = lower_filters([_cmp(">=", _c(3), _date(8766)),
+                            _cmp("<", _c(2), _int(24))])
+    assert ranges.cols == [3, 2] and ranges.rest == []
+    ctx = _fold_ctx(n, nullable)
+    valid = _t(np.arange(n) % 7 != 0)
+    got = dag_exec.dense_agg_states_range(ctx, valid, aggs, ranges, n,
+                                          dag_exec.fold_pairs(aggs))
+    folded = sum(p is not None for p in pairs) if not nullable else 0
+    assert sk.COUNTS["product_pairs"] == folded
+    mask = valid
+    for f in ranges.lowered:
+        mask = mask & eval_bool_mask(ctx, f)
+    want = dag_exec._reduce_plain(ctx, mask, aggs, n)
+    assert torch.equal(got["present"], want["present"])
+    assert len(got["states"]) == len(want["states"])
+    for g, w in zip(got["states"], want["states"]):
+        assert len(g) == len(w)
+        for gt, wt in zip(g, w):
+            assert gt.dtype == wt.dtype and torch.equal(gt, wt), (gt, wt)
+
+
+@pytest.fixture(scope="module")
+def q6_kits():
+    ref = RefKit()
+    ref_tpch.load_tpch(ref, sf=0.05, seed=7)
+    port = PortKit(device="cpu")
+    port_tpch.load_tpch(port, sf=0.05, seed=7)
+    return ref, port
+
+
+def test_q6_folds_its_product_and_equals_reference(q6_kits):
+    """Q6 at SF0.05 through the port: the reference's rows, with the
+    product handed to range_filter_sums as a pair."""
+    ref, port = q6_kits
+    want = ref.must_query(ref_tpch.QUERIES["q6"])._norm()
+    assert port.must_query(port_tpch.QUERIES["q6"])._norm() == want
+    assert sk.COUNTS["product_pairs"] > 0
+    assert port_tpch.q6_oracle(port) == want

@@ -19,7 +19,8 @@ from tidb_tpu_torch.ops import scan_kernels as sk
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-from chip_smoke import LAYOUT_CASES, layout_case  # noqa: E402
+from chip_smoke import (LAYOUT_CASES, RANGE_NPREDS, layout_case,  # noqa: E402
+                        range_layout_case)
 
 
 @pytest.fixture(autouse=True)
@@ -172,7 +173,38 @@ def test_layout_cases_match_numpy(case):
         g_s, g_c = sk.dense_group_sums(cols, slots, nslots, mask)
     np.testing.assert_array_equal(g_s.numpy(), o_s)
     np.testing.assert_array_equal(g_c.numpy(), o_c)
-    assert sk.masked_sums.launches == 0 == sk.dense_group_sums.launches
+    assert sk.COUNTS["masked_sums"] == 0 == sk.COUNTS["dense_group_sums"]
+
+
+@pytest.mark.parametrize("npred", RANGE_NPREDS)
+@pytest.mark.parametrize("case", _CPU_LAYOUTS,
+                         ids=["-".join(map(str, c)) for c in _CPU_LAYOUTS])
+def test_range_layout_cases_match_numpy(case, npred):
+    """range_filter_sums' inputs for the same layouts: predicate and
+    operand views at the case's offsets, an operand that is predicate
+    1's column, and the wrapper's sums equal to a numpy int64 oracle
+    (products and sums wrapping at 2^64 as the kernel's do)."""
+    n, moff, coff, mask_kind, alias, nslots, extreme = case
+    sums, preds, bounds, valid, products = range_layout_case(
+        *case, npred, device="cpu")
+    assert len(preds) == len(bounds) == npred
+    assert valid.storage_offset() == moff
+    assert all(t.storage_offset() in (coff, coff + 1)
+               for t in sums + preds + [x for p in products for x in p])
+    assert len(sums) + len(products) == (16 if alias == "wide" else 4)
+    if npred > 1 and alias != "wide":
+        assert products[0][1] is preds[1]
+    m = valid.numpy().copy()
+    for c, (lo, hi) in zip(preds, bounds):
+        m &= (c.numpy() >= lo) & (c.numpy() <= hi)
+    with np.errstate(over="ignore"):
+        terms = [c.numpy() for c in sums] + \
+            [a.numpy() * b.numpy() for a, b in products]
+        want = [v[m].sum(dtype=np.int64) for v in terms]
+    got_s, got_c = sk.range_filter_sums(sums, preds, bounds, valid, products)
+    np.testing.assert_array_equal(got_s.numpy(), want)
+    assert int(got_c) == int(m.sum())
+    assert sk.COUNTS["range_filter_sums"] == 0
 
 
 # ---- the build hash -------------------------------------------------------
@@ -193,7 +225,10 @@ def test_build_hash_covers_every_source_and_header(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["tree", "ring_only", "aggregate_only",
-                                  "blocks=2", "masked_blocks=3"])
+                                  "blocks=2", "masked_blocks=3",
+                                  "rf_ring", "rf_stream_only", "rf_blocks=3",
+                                  "rf_no_keep",
+                                  "rf_stream_only+rf_ring"])
 def test_kernel_variants_edit_the_tree_source(name):
     """bench/kernel_variants' text variants still find their anchors in
     scan_kernels.cu, and each changes the source (but `tree`)."""
@@ -202,5 +237,10 @@ def test_kernel_variants_edit_the_tree_source(name):
         src = f.read()
     out = kv.variant_source(src, name)
     assert (out == src) == (name == "tree")
+    if "rf_ring" in name:      # the source holds no ring; the variant adds it
+        assert "range_filter_sums_ring_kernel" not in src
+        assert out.count("range_filter_sums_ring_kernel<KC>") == 4
+    if "+" in name:            # both edits
+        assert "  const int k = 0;\n" in out
     with pytest.raises(ValueError):
         kv.variant_source(src, "no_such_variant")

@@ -307,7 +307,7 @@ def tpch_servers():
 @pytest.fixture
 def range_calls(monkeypatch):
     """Calls of the range_filter_sums wrapper, from any thread (on the
-    CPU it runs its plain version, so `.launches` stays 0)."""
+    CPU it runs its plain version, so its launch count stays 0)."""
     calls = []
     fn = scan_kernels.range_filter_sums
 

@@ -40,7 +40,7 @@ def kits():
 @pytest.fixture
 def kernel_calls(monkeypatch):
     """Count calls of the scan-kernel wrappers (on the CPU they run their
-    plain versions, so `.launches` stays 0)."""
+    plain versions, so their launch counts stay 0)."""
     calls = {"masked_sums": 0, "dense_group_sums": 0,
              "range_filter_sums": 0}
     for name in calls:

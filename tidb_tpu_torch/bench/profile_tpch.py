@@ -11,7 +11,9 @@ numpy oracle (bench/tpch.py), failing on a mismatch. For each query
     in torch.cuda.synchronize) and lineitem rows scanned per second;
   - the device's busy time over the same statements under
     torch.profiler (the union of the CUDA kernel and copy intervals),
-    hence its idle share, and the device time by kernel name;
+    hence its idle share, the device time by kernel name, and the
+    elementwise multiplication kernels per statement (Q6 folds its
+    product into range_filter_sums, so it has none);
   - a host breakdown from cProfile: cumulative seconds per statement in
     the engine's stages (analyze, snapshot, upload, fragment enqueue,
     kernel wrappers, fetch + compaction, final merge). cProfile slows
@@ -85,7 +87,9 @@ def _busy_us(events):
 
 def _device_profile(torch, run, nstmts):
     """Run `run` under torch.profiler -> (wall s, busy s or None,
-    [(kernel name, device ms per statement, calls per statement)])."""
+    [(kernel name, device ms per statement, calls per statement)], the
+    elementwise multiplication kernels (torch's MulFunctor) per
+    statement)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -97,15 +101,17 @@ def _device_profile(torch, run, nstmts):
         wall = time.perf_counter() - t0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
-        return wall, None, []
+        return wall, None, [], None
     by = {}
     for e in dev:
         ms, n = by.get(e.name, (0.0, 0))
         by[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
                       n + 1)
     top = sorted(by.items(), key=lambda kv: -kv[1][0])[:12]
+    muls = sum(n for name, (_ms, n) in by.items() if "MulFunctor" in name)
     return wall, _busy_us(dev) / 1e6, [
-        (name[:90], ms / nstmts, n / nstmts) for name, (ms, n) in top]
+        (name[:90], ms / nstmts, n / nstmts) for name, (ms, n) in top], \
+        muls / nstmts
 
 
 def _peak_rss_gib():
@@ -182,7 +188,8 @@ def main(argv=None):
         def run():
             for _ in range(args.runs):
                 tk.must_query(sql)
-        wall, busy, top = _device_profile(torch, run, args.runs)
+        wall, busy, top, muls = _device_profile(torch, run, args.runs)
+        r["mul_kernels_per_stmt"] = muls
         r["profiled_wall_ms_per_stmt"] = wall * 1e3 / args.runs
         if busy is None:
             r["device_busy_ms_per_stmt"] = None
@@ -212,6 +219,9 @@ def main(argv=None):
                   f"of {r['profiled_wall_ms_per_stmt']:.3f} ms per "
                   f"statement under the profiler, idle share "
                   f"{r['device_idle_share']:.4f}", flush=True)
+        print(f"{q}: elementwise multiplication kernels per statement: "
+              f"{'not measured' if muls is None else f'{muls:g}'}",
+              flush=True)
         for name, ms, calls in top:
             print(f"{q}:   device {ms:.4f} ms/stmt {calls:g} calls/stmt "
                   f"{name}", flush=True)

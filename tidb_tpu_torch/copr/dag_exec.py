@@ -21,7 +21,9 @@ _host_partial_agg). The dense lowering routes by shape:
 
 The range route is the fused fragment's (copr/pipeline.py): its fact
 filters that copr/range_lowering.py turns into column bounds are tested
-inside the kernel. The three kernels take a shape only when every
+inside the kernel, and a sum/avg of the product of two bare int or
+decimal columns that needs no rescale (fold_pairs; Q6's
+l_extendedprice * l_discount) is summed there as a product pair. The three kernels take a shape only when every
 aggregate is sum/avg/count and every argument is an int64 tensor without
 a null mask (k <= 16, _kernel_args); a global reduce of any other shape
 runs the plain torch twin of the reference's masked reductions, and a
@@ -41,7 +43,8 @@ import numpy as np
 import torch
 
 from ..expression import EvalCtx, eval_expr, eval_bool_mask
-from ..expression.vec import materialize_nulls
+from ..expression.expr import Column as ExprColumn, ScalarFunc
+from ..expression.vec import materialize_nulls, mul_is_plain_int64
 from ..expression.torch_ns import TorchNS
 from ..utils.fetch import prefetch, host_array
 from .residency import DeviceResidentStore
@@ -54,6 +57,7 @@ from ..chunk.device import to_tensor
 from ..chunk.column import Column
 from ..chunk.chunk import Chunk
 from ..ops import scan_kernels
+from ..types.field_type import TypeClass
 
 _I64_MAX = np.iinfo(np.int64).max
 
@@ -704,25 +708,83 @@ def kernel_aggs_fit(aggs):
         scan_kernels.MAX_COLS
 
 
+def _int64_arg(d, nl, cap):
+    """`d` as a contiguous int64 [cap] tensor when it is one and has no
+    null mask, else None."""
+    if not (nl is None or nl is False) or \
+            not isinstance(d, torch.Tensor) or d.dtype != INT64 or \
+            d.ndim != 1 or d.shape[0] != cap:
+        return None
+    return d.contiguous()
+
+
 def _kernel_args(ctx, aggs, cap):
     """The scan kernels' shape rule: kernel_aggs_fit, and every argument
     evaluates to an int64 [cap] tensor with no null mask. -> the
     evaluated sum/avg argument tensors (a count needs none: with no null
     mask it is the row count), or None for any other shape."""
+    terms = _kernel_terms(ctx, aggs, cap, [None] * len(aggs))
+    return None if terms is None else terms[0]
+
+
+_FOLD_CLASSES = (TypeClass.INT, TypeClass.DECIMAL)
+
+
+def product_operands(expr):
+    """The fold rule's shape part, for one aggregate argument: the plan
+    column indexes (i, j) when `expr` is a `*` of two bare int or decimal
+    Columns that the evaluator multiplies as the plain int64 product of
+    their storage (expression/vec.py mul_is_plain_int64: no rescale),
+    else None."""
+    if not isinstance(expr, ScalarFunc) or expr.op != "*" or \
+            len(expr.args) != 2 or expr.ft is None:
+        return None
+    a, b = expr.args
+    for c in (a, b):
+        if not isinstance(c, ExprColumn) or c.ft is None or \
+                c.ft.tclass not in _FOLD_CLASSES:
+            return None
+    if not mul_is_plain_int64(expr):
+        return None
+    return a.idx, b.idx
+
+
+def fold_pairs(aggs):
+    """Per aggregate, the operand columns its sum/avg argument folds into
+    range_filter_sums as a product pair (product_operands), else None.
+    Decided from the plan when the fragment is built."""
+    return [product_operands(a.args[0])
+            if a.name in ("sum", "avg") and a.args else None for a in aggs]
+
+
+def _kernel_terms(ctx, aggs, cap, folds):
+    """_kernel_args with the fold: a sum/avg argument with fold pair
+    (i, j) (fold_pairs) passes columns i and j as a product pair when
+    both are int64 [cap] tensors without a null mask; every other
+    argument is evaluated as _kernel_args says. -> (cols, pairs, order):
+    the evaluated columns, the pairs, and for each sum/avg its row in the
+    kernel's [cols..., pairs...] sums; None for any other shape."""
     if not kernel_aggs_fit(aggs):
         return None
-    cols = []
-    for a in aggs:
+    cols, pairs, where = [], [], []
+    for a, fold in zip(aggs, folds):
         if not a.args:
             continue
+        if fold is not None:
+            pair = tuple(_int64_arg(*ctx.cols[i][:2], cap) for i in fold)
+            if None not in pair:
+                where.append((True, len(pairs)))
+                pairs.append(pair)
+                continue
         d, nl, _ = eval_expr(ctx, a.args[0])
-        if not (nl is None or nl is False) or \
-                not isinstance(d, torch.Tensor) or d.dtype != INT64 or \
-                d.ndim != 1 or d.shape[0] != cap:
+        d = _int64_arg(d, nl, cap)
+        if d is None:
             return None
         if a.name != "count":
-            cols.append(d.contiguous())
-    return cols
+            where.append((False, len(cols)))
+            cols.append(d)
+    order = [len(cols) + j if is_pair else j for is_pair, j in where]
+    return cols, pairs, order
 
 
 def _kernel_states(aggs, sums, counts):
@@ -777,20 +839,23 @@ def _reduce_plain(ctx, mask, aggs, cap):
     return {"present": mask.sum(dtype=INT64)[None], "states": states}
 
 
-def dense_agg_states_range(ctx, valid, aggs, ranges, cap):
+def dense_agg_states_range(ctx, valid, aggs, ranges, cap, folds):
     """Global aggregation (nslots == 1) under range filters through the
     range_filter_sums kernel: `ranges` is a copr/range_lowering
     RangeLowering over ctx's columns, `valid` the row mask with every
-    other filter already ANDed in. A predicate column's NULLs compare
-    false, so its ~nulls join valid. The plan picked this route for
-    aggregates that fit (kernel_aggs_fit); an argument that arrives with
-    a null mask or another dtype sends the partition to the evaluator's
-    compares and the plain reductions."""
-    cols = _kernel_args(ctx, aggs, cap)
-    if cols is None:
+    other filter already ANDed in, `folds` fold_pairs(aggs): a product of
+    two columns is summed in the kernel as a pair, without a product
+    column. A predicate column's NULLs compare false, so its ~nulls join
+    valid. The plan picked this route for aggregates that fit
+    (kernel_aggs_fit); an argument that arrives with a null mask or
+    another dtype sends the partition to the evaluator's compares and
+    the plain reductions."""
+    terms = _kernel_terms(ctx, aggs, cap, folds)
+    if terms is None:
         for f in ranges.lowered:
             valid = valid & eval_bool_mask(ctx, f)
         return _reduce_plain(ctx, valid, aggs, cap)
+    cols, pairs, order = terms
     preds = []
     for idx in ranges.cols:
         d, nl, _ = ctx.cols[idx]
@@ -798,7 +863,9 @@ def dense_agg_states_range(ctx, valid, aggs, ranges, cap):
             valid = valid & ~nl
         preds.append(d.contiguous())
     sums, count = scan_kernels.range_filter_sums(cols, preds, ranges.bounds,
-                                                 valid)
+                                                 valid, pairs)
+    if order != list(range(len(order))):
+        sums = sums[order]
     count = count[None]
     return {"present": count,
             "states": _kernel_states(aggs, sums[:, None], count)}

@@ -19,8 +19,10 @@ shape when the body is built:
 
   one slot, range filters     the filters that copr/range_lowering.py
                               turns into column bounds are tested in
-                              ops.range_filter_sums (Q6); the others
-                              are ANDed into its valid mask first
+                              ops.range_filter_sums (Q6), with a sum
+                              of a product of two columns folded in;
+                              the others are ANDed into its valid
+                              mask first
   one slot, no range filter   filters -> mask -> ops.masked_sums
   a slot domain               filters -> mask -> ops.dense_group_sums
                               (<= 64 slots, Q1) or the torch scatter
@@ -44,7 +46,7 @@ from ..expression.vec import materialize_nulls
 from ..expression.torch_ns import TORCH_OPS, ops_of
 from ..chunk.device import shape_bucket
 from .dag_exec import (capture_agg_dicts, _dense_strides, dense_agg_body,
-                       dense_agg_states_range, kernel_aggs_fit,
+                       dense_agg_states_range, fold_pairs, kernel_aggs_fit,
                        _compact_dense)
 from .range_lowering import lower_filters
 from ..utils.fetch import prefetch
@@ -208,7 +210,8 @@ def _make_pipeline_body(plan, fact_cap, fact_sdicts, sizes, xp):
     reference's _build_fused_kernel jit-compiles this body; torch runs
     it eagerly, so there is nothing to build. Only zero-dimension plans
     reach it (_decline_reason). A global aggregation (one slot) whose
-    filters lower to column bounds runs them in range_filter_sums."""
+    filters lower to column bounds runs them in range_filter_sums, with
+    its products of two columns folded in (dag_exec.fold_pairs)."""
     fact_filters = list(plan.fact_dag.filters)
     group_items = list(plan.group_items)
     aggs = list(plan.aggs)
@@ -217,6 +220,7 @@ def _make_pipeline_body(plan, fact_cap, fact_sdicts, sizes, xp):
         nslots *= size
     ranges = lower_filters(fact_filters) \
         if nslots == 1 and kernel_aggs_fit(aggs) else None
+    folds = fold_pairs(aggs) if ranges is not None else None
 
     def body(fjc, fvv):
         cap = fact_cap
@@ -226,7 +230,8 @@ def _make_pipeline_body(plan, fact_cap, fact_sdicts, sizes, xp):
         if ranges is not None:
             for f in ranges.rest:
                 mask = mask & eval_bool_mask(ctx, f)
-            return dense_agg_states_range(ctx, mask, aggs, ranges, cap)
+            return dense_agg_states_range(ctx, mask, aggs, ranges, cap,
+                                          folds)
         for f in fact_filters:
             mask = mask & eval_bool_mask(ctx, f)
         return dense_agg_body(ctx, mask, group_items, aggs, sizes, cap)

@@ -393,6 +393,23 @@ def op_addsub(ctx, expr):
     return r, or_nulls(ctx.xp, an, bn), None
 
 
+def mul_is_plain_int64(expr):
+    """True exactly when op_mul computes the `*` ScalarFunc `expr` as the
+    wrapping int64 product a * b of its operands' storage: neither
+    operand is float or string, and where one is decimal, the result's
+    scale is the sum of theirs (no rescale) and at most 18 (no exact
+    python-int product). A fold that multiplies the operands elsewhere
+    (the range_filter_sums kernel) holds to this rule."""
+    aft, bft = expr.args[0].ft, expr.args[1].ft
+    classes = (_dataclass_of(aft), _dataclass_of(bft))
+    if "float" in classes or "string" in classes:
+        return False
+    if "decimal" not in classes:
+        return True
+    ts = _scale_of(expr.ft)
+    return ts <= 18 and ts == _scale_of(aft) + _scale_of(bft)
+
+
 @op("*")
 def op_mul(ctx, expr):
     (a, an, _), (b, bn, _) = _binary_vals(ctx, expr, numeric=True)
@@ -402,24 +419,25 @@ def op_mul(ctx, expr):
     if "float" in (ca, cb) or "string" in (ca, cb):
         r = _to_float(ctx, a, aft) * _to_float(ctx, b, bft)
         return r, or_nulls(xp, an, bn), None
-    if "decimal" in (ca, cb):
-        s = _scale_of(aft) + _scale_of(bft)
-        ts = _scale_of(expr.ft)
-        if ts > 18 and ctx.host:
-            # result scale beyond int64: exact python-int multiply
-            # (small-scale int64 operands would silently overflow)
-            def _obj(v):
-                if hasattr(v, "astype"):
-                    return v.astype(object)
-                return int(v) if not isinstance(v, float) else v
-            r = _obj(a) * _obj(b)
-        else:
-            r = a * b
-        if ts != s:
-            r = _rescale_up(xp, r, ts - s) if ts > s else \
-                _rescale_down_round(xp, r, s - ts)
-        return r, or_nulls(xp, an, bn), None
-    return a * b, or_nulls(xp, an, bn), None
+    if mul_is_plain_int64(expr):
+        return a * b, or_nulls(xp, an, bn), None
+    # a decimal product that is rescaled, or whose scale passes int64's
+    s = _scale_of(aft) + _scale_of(bft)
+    ts = _scale_of(expr.ft)
+    if ts > 18 and ctx.host:
+        # result scale beyond int64: exact python-int multiply
+        # (small-scale int64 operands would silently overflow)
+        def _obj(v):
+            if hasattr(v, "astype"):
+                return v.astype(object)
+            return int(v) if not isinstance(v, float) else v
+        r = _obj(a) * _obj(b)
+    else:
+        r = a * b
+    if ts != s:
+        r = _rescale_up(xp, r, ts - s) if ts > s else \
+            _rescale_down_round(xp, r, s - ts)
+    return r, or_nulls(xp, an, bn), None
 
 
 @op("/")

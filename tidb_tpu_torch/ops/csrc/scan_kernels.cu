@@ -78,23 +78,45 @@
 // tidb_range_filter_sums replaces tidb_tpu/ops/pallas_scan.py:
 // range_filter_sums (_range_filter_sums_impl / _filter_kernel), the
 // whole TPC-H Q6 hot loop as one program: inclusive [lo, hi] tests on
-// npred int64 columns, ANDed with valid, then masked int64 sums of k
-// columns plus the count. Memory-bound: it must read the n-byte valid
-// mask in full; of predicate column p, the 32-byte sectors that hold a
-// row still passing valid and predicates 0..p-1; of the k sum columns,
-// the sectors that hold a row that passed all. On Q6's data that is far
-// below n + 8*n*npred bytes: the first predicate (shipdate) keeps about
-// 15 % of the rows. Design: the
-// TPU kernel's 8192-row blocks and 128-lane accumulator tile are not
-// kept. One thread per row in a grid-stride loop tests valid[i], then
-// the predicates in order, and stops at the first that fails; only a
-// row that passes every test reads its k sum columns. The accumulators
-// and the reduction are masked_sums': int64 registers, warp shuffles,
-// one 64-bit atomicAdd per output, exact and the same in any block
-// order. The predicate pointers and the lo/hi bounds travel by value
-// in a kernel parameter (PredArgs), the counterpart of the TPU's SMEM
-// bounds, so no bounds tensor is copied to the card per launch. An
-// empty range (lo > hi) passes no row.
+// npred int64 columns, ANDed with valid, then int64 sums of k terms plus
+// the count. A term is a column, as on the TPU, or the wrapped int64
+// product of two columns: Q6's sum(l_extendedprice * l_discount) is
+// folded in, where the reference's jitted fragment evaluates the product
+// inside its program, so no product column is written to device memory.
+// Memory-bound: it must read the n-byte valid mask in full; of predicate
+// column p, the 32-byte sectors that hold a row still passing valid and
+// predicates 0..p-1; of each operand buffer that is no predicate's, the
+// sectors that hold a row that passed all. On Q6's data the first
+// predicate (shipdate) keeps about 15 % of the rows, so valid and
+// shipdate are most of the bytes. Design, after masked_sums: a warp takes
+// 512-row chunks; each lane loads its 16 valid bytes as one vector, the
+// next chunk's in flight; the live masks are exchanged by shuffles so
+// that lane l reads rows 2l and 2l + 1 of each 64-row step, a 16-byte
+// load where both rows are live and the column is aligned, 8 bytes where
+// one is, none where neither is. Each predicate reads its column for the
+// rows still live, all 8 steps' loads issued before any test, and clears
+// the rows that fail; a chunk with no live row left stops. The terms
+// then read their operands for the rows that passed; an operand that is
+// a predicate's column (Q6's l_discount) reuses the values from the
+// registers that tested it (one such predicate, `keep`, chosen from the
+// pointers; other aliases read again, from L1). Products multiply as
+// unsigned 64-bit, wrapping as torch's int64 `*` does. The kernel is
+// instantiated for term buckets of 1, 4 and 16, so the accumulators take
+// only the registers k needs; the grid is persistent (occupancy x SMs).
+// A valid mask at an offset takes its head rows, and the tail after the
+// last whole chunk, one row per thread; a column that the head does not
+// align takes 8-byte loads, decided from the pointers before the launch.
+// The predicate pointers, the lo/hi bounds and the term pointers travel
+// by value in a __grid_constant__ kernel parameter (RfArgs), the
+// counterpart of the TPU's SMEM bounds. Accumulators and the reduction
+// are masked_sums' (block_add): exact, the same in any block order. An
+// empty range (lo > hi) passes no row. What bounds it on Q6's data: the
+// valid + shipdate stream alone runs at about 1.3x its bytes' bound
+// (rf_stream_only); the rest is the chain of dependent loads of the
+// later predicates and the terms, one round trip each per chunk, at 16
+// warps per SM (a third block spills; PERF.md). dense_group_sums' bulk-copy
+// ring, tried for valid + shipdate, was slower than these vector loads
+// (bench/kernel_variants.py rf_ring adds it).
 //
 // The k column pointers travel by value in a kernel parameter (an array
 // of up to kMaxCols device pointers), so evaluated aggregate arguments
@@ -116,42 +138,40 @@ struct ColPtrs {
   const int64_t* p[kMaxCols];
 };
 
-struct PredArgs {              // 16 x 24 B = 384 B of kernel parameters
-  const int64_t* p[kMaxPreds];
-  long long lo[kMaxPreds];     // inclusive bounds
-  long long hi[kMaxPreds];
-};
-
-__device__ __forceinline__ long long warp_sum(long long v) {
+__device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
 }
 
-// Adds the block's per-thread accumulators into out[0..k] (out[k] the
-// count): warp shuffles, then one 64-bit atomicAdd per output.
-__device__ __forceinline__ void block_add(const long long (&acc)[kMaxCols], long long cnt,
-                                          int k, unsigned long long* __restrict__ out) {
-  __shared__ long long part[kWarps][kMaxCols + 1];
+// Adds the per-thread accumulators acc[0..k) (k <= KC) and cnt of a
+// block into out[0..k] (out[k] the count): warp shuffles, then one 64-bit
+// atomicAdd per output. Adds wrap mod 2^64, so the sums are exact and
+// the same in any block order.
+template <int KC>
+__device__ __forceinline__ void block_add(const unsigned long long (&acc)[KC],
+                                          unsigned long long cnt, int k,
+                                          unsigned long long* __restrict__ out) {
+  __shared__ unsigned long long part[kWarps][KC + 1];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int j = 0; j < kMaxCols; ++j) {
+  for (int j = 0; j < KC; ++j) {
     if (j < k) {
-      long long v = warp_sum(acc[j]);
+      const unsigned long long v = warp_sum(acc[j]);
       if (lane == 0) part[warp][j] = v;
     }
   }
-  long long c = warp_sum(cnt);
-  if (lane == 0) part[warp][kMaxCols] = c;
+  const unsigned long long c = warp_sum(cnt);
+  if (lane == 0) part[warp][KC] = c;
   __syncthreads();
-  // thread j < k sums column j across warps; thread kMaxCols the count
+  // thread j < k sums column j across warps; thread KC the count
   const int t = threadIdx.x;
-  if (t < k || t == kMaxCols) {
-    long long s = 0;
+  if (t < k || t == KC) {
+    unsigned long long s = 0ull;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) s += part[w][t];
-    if (s != 0) atomicAdd(&out[t < k ? t : k], (unsigned long long)s);
+    if (s != 0ull) atomicAdd(&out[t < k ? t : k], s);
   }
 }
 
@@ -243,43 +263,6 @@ masked_sums_kernel(ColPtrs cols, int k, const unsigned char* __restrict__ mask, 
     }
     c = cn;
     m = mn;
-  }
-  long long sacc[kMaxCols];
-#pragma unroll
-  for (int j = 0; j < kMaxCols; ++j) sacc[j] = (long long)acc[j];
-  block_add(sacc, (long long)cnt, k, out);
-}
-
-// ---- range_filter_sums --------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-range_filter_sums_kernel(ColPtrs cols, int k, PredArgs preds, int npred,
-                         const bool* __restrict__ valid, int64_t n,
-                         unsigned long long* __restrict__ out) {
-  long long acc[kMaxCols];
-#pragma unroll
-  for (int j = 0; j < kMaxCols; ++j) acc[j] = 0;
-  long long cnt = 0;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
-    if (!valid[i]) continue;
-    bool pass = true;
-    // unrolled with static indices, so the parameter arrays stay in the
-    // constant bank instead of a local-memory copy
-#pragma unroll
-    for (int p = 0; p < kMaxPreds; ++p) {
-      if (p >= npred) break;
-      const long long v = __ldg(reinterpret_cast<const long long*>(preds.p[p]) + i);
-      if (v < preds.lo[p] || v > preds.hi[p]) {
-        pass = false;
-        break;
-      }
-    }
-    if (!pass) continue;
-    ++cnt;
-#pragma unroll
-    for (int j = 0; j < kMaxCols; ++j)
-      if (j < k) acc[j] += cols.p[j][i];
   }
   block_add(acc, cnt, k, out);
 }
@@ -520,6 +503,195 @@ GsPlan gs_plan(int k, int nslots, bool bulk) {
   return p;
 }
 
+// ---- range_filter_sums --------------------------------------------------
+
+struct RfArgs {                  // about 0.7 KB of kernel parameters
+  const long long* pred[kMaxPreds];
+  long long lo[kMaxPreds];       // inclusive bounds
+  long long hi[kMaxPreds];
+  const long long* a[kMaxCols];  // term j sums a[j], or a[j] * b[j]
+  const long long* b[kMaxCols];  // nullptr: a plain sum
+  const unsigned char* valid;
+  unsigned long long* out;
+  long long n;
+  long long head;                // rows before the first 16-byte-aligned valid byte
+  long long nchunks;             // whole chunks of kMsChunk rows from row head
+  int npred, k;
+  int keep;                      // the predicate whose tested values operands reuse, or -1
+  unsigned a_kept, b_kept;       // bit j: a[j] / b[j] is predicate keep's column
+  unsigned pred_pair, a_pair, b_pair;  // bit: 16-byte loads (aligned at row head)
+};
+
+// The values of rows 2 * lane and 2 * lane + 1 of a chunk's 8 steps of 64
+// rows (p: the lane's first row) where live (bits 0 and 1 of pr[s]): one
+// 16-byte load where both are and `pair`, an 8-byte load per live row
+// otherwise, none where neither is; 0 where a row is not live.
+__device__ __forceinline__ void load_pairs(const long long* __restrict__ p, bool pair,
+                                           const unsigned (&pr)[kMsSteps],
+                                           long long (&v)[kMsSteps][2]) {
+#pragma unroll
+  for (int s = 0; s < kMsSteps; ++s) {
+    v[s][0] = 0;
+    v[s][1] = 0;
+    if (pair && pr[s] == 3u) {
+      const longlong2 t = __ldg(reinterpret_cast<const longlong2*>(p + 64 * s));
+      v[s][0] = t.x;
+      v[s][1] = t.y;
+    } else {
+      if (pr[s] & 1u) v[s][0] = __ldg(p + 64 * s);
+      if (pr[s] & 2u) v[s][1] = __ldg(p + 64 * s + 1);
+    }
+  }
+}
+
+// One warp's chunk of kMsChunk rows. m: the lane's 16 valid bytes; base:
+// the row of the lane's first value (row 2 * lane of step 0). Each predicate
+// tests the rows still live, with all 8 steps' loads of its column issued
+// before any test; the chunk ends where no row of the warp is left. Then
+// each term's operands are read for the rows that passed, an operand that
+// is predicate `keep`'s column from the registers that tested it.
+template <int KC>
+__device__ __forceinline__ void rf_chunk(const RfArgs& a, uint4 m, long long base,
+                                         unsigned long long (&acc)[KC],
+                                         unsigned long long& cnt) {
+  const int npred = a.npred;
+  const int k = a.k;
+  const int lane = threadIdx.x & 31;
+  const unsigned bits = live16(m);
+  if (!__any_sync(kFull, bits != 0u)) return;
+  // rows 2*lane, 2*lane + 1 of step s sit in lane 4s + lane/8's mask
+  unsigned pr[kMsSteps];
+#pragma unroll
+  for (int s = 0; s < kMsSteps; ++s)
+    pr[s] = (__shfl_sync(kFull, bits, 4 * s + (lane >> 3)) >> (2 * (lane & 7))) & 3u;
+  long long kv[kMsSteps][2];
+#pragma unroll
+  for (int s = 0; s < kMsSteps; ++s) kv[s][0] = kv[s][1] = 0;
+  // unrolled with static indices, and the arguments __grid_constant__,
+  // so the parameter arrays stay in the constant bank (no local copy)
+#pragma unroll
+  for (int p = 0; p < kMaxPreds; ++p) {
+    if (p >= npred) break;
+    long long v[kMsSteps][2];
+    load_pairs(a.pred[p] + base, (a.pred_pair >> p) & 1u, pr, v);
+    const long long lo = a.lo[p], hi = a.hi[p];
+    unsigned any = 0u;
+#pragma unroll
+    for (int s = 0; s < kMsSteps; ++s) {
+      if (v[s][0] < lo || v[s][0] > hi) pr[s] &= ~1u;
+      if (v[s][1] < lo || v[s][1] > hi) pr[s] &= ~2u;
+      any |= pr[s];
+    }
+    if (p == a.keep) {
+#pragma unroll
+      for (int s = 0; s < kMsSteps; ++s) {
+        kv[s][0] = v[s][0];
+        kv[s][1] = v[s][1];
+      }
+    }
+    if (!__any_sync(kFull, any != 0u)) return;
+  }
+  unsigned c = 0u;
+#pragma unroll
+  for (int s = 0; s < kMsSteps; ++s) c += __popc(pr[s]);
+  cnt += c;
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+    if (j >= k) break;
+    long long x[kMsSteps][2], y[kMsSteps][2];
+    const bool prod = a.b[j] != nullptr;
+    if ((a.a_kept >> j) & 1u) {
+#pragma unroll
+      for (int s = 0; s < kMsSteps; ++s) x[s][0] = kv[s][0], x[s][1] = kv[s][1];
+    } else {
+      load_pairs(a.a[j] + base, (a.a_pair >> j) & 1u, pr, x);
+    }
+    if (prod) {
+      if ((a.b_kept >> j) & 1u) {
+#pragma unroll
+        for (int s = 0; s < kMsSteps; ++s) y[s][0] = kv[s][0], y[s][1] = kv[s][1];
+      } else {
+        load_pairs(a.b[j] + base, (a.b_pair >> j) & 1u, pr, y);
+      }
+    }
+    // unsigned: the product wraps mod 2^64 as torch's int64 `*` does
+    unsigned long long t = 0ull;
+#pragma unroll
+    for (int s = 0; s < kMsSteps; ++s) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        unsigned long long xv = (unsigned long long)x[s][r];
+        if (prod) xv *= (unsigned long long)y[s][r];
+        if ((pr[s] >> r) & 1u) t += xv;
+      }
+    }
+    acc[j] += t;
+  }
+}
+
+// One row outside the whole chunks (the aligning head, the tail), read
+// straight from global memory; stops at the first failing test.
+template <int KC>
+__device__ __forceinline__ void rf_row(const RfArgs& a, long long row,
+                                       unsigned long long (&acc)[KC],
+                                       unsigned long long& cnt) {
+  if (!a.valid[row]) return;
+#pragma unroll
+  for (int p = 0; p < kMaxPreds; ++p) {
+    if (p >= a.npred) break;
+    const long long v = __ldg(a.pred[p] + row);
+    if (v < a.lo[p] || v > a.hi[p]) return;
+  }
+  ++cnt;
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+    if (j >= a.k) break;
+    unsigned long long x = (unsigned long long)__ldg(a.a[j] + row);
+    if (a.b[j] != nullptr) x *= (unsigned long long)__ldg(a.b[j] + row);
+    acc[j] += x;
+  }
+}
+
+// The rows outside the whole chunks, one a thread: the head before the
+// first aligned valid byte, the tail after the last chunk.
+template <int KC>
+__device__ __forceinline__ void rf_rows(const RfArgs& a, unsigned long long (&acc)[KC],
+                                        unsigned long long& cnt) {
+  const long long body_end = a.head + a.nchunks * kMsChunk;
+  const long long extra = a.n - a.nchunks * kMsChunk;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < extra;
+       i += (long long)gridDim.x * kThreads)
+    rf_row(a, i < a.head ? i : body_end + (i - a.head), acc, cnt);
+}
+
+// Blocks per SM the kernel for term bucket KC is built for: two for one
+// term (114 registers); three spill and are slower (rf_blocks=3). The
+// 4- and 16-term buckets take up to 250 registers, one block.
+constexpr int rf_min_blocks(int kc) { return kc <= 1 ? 2 : 1; }
+
+// KC: the term bucket (1, 4 or 16 >= k), so acc[] takes only the registers k needs
+template <int KC>
+__global__ void __launch_bounds__(kThreads, rf_min_blocks(KC))
+    range_filter_sums_kernel(const __grid_constant__ RfArgs a) {
+  unsigned long long acc[KC];
+#pragma unroll
+  for (int j = 0; j < KC; ++j) acc[j] = 0ull;
+  unsigned long long cnt = 0ull;
+  rf_rows(a, acc, cnt);
+  const int lane = threadIdx.x & 31;
+  const long long wstride = (long long)gridDim.x * kWarps;
+  long long c = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  uint4 m = mask_vec(a.valid, a.head, c, a.nchunks, lane);
+  while (c < a.nchunks) {                    // uniform across the warp
+    const long long cn = c + wstride;
+    const uint4 mn = mask_vec(a.valid, a.head, cn, a.nchunks, lane);
+    rf_chunk(a, m, a.head + c * kMsChunk + 2 * lane, acc, cnt);
+    c = cn;
+    m = mn;
+  }
+  block_add(acc, cnt, a.k, a.out);
+}
+
 // ---- launch helpers -----------------------------------------------------
 
 int sm_count() {
@@ -566,10 +738,18 @@ int launch_gs(const GsArgs& a, size_t smem, long long want, int& cap, cudaStream
   return (int)cudaGetLastError();
 }
 
-int grid_for(int64_t n, int max_blocks) {
-  int64_t b = (n + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  return (int)(b < max_blocks ? b : max_blocks);
+// the term bucket a launch with k terms takes
+constexpr int rf_bucket(int k) { return k <= 1 ? 1 : k <= 4 ? 4 : 16; }
+
+// range_filter_sums_kernel<KC> on at most occupancy x SMs blocks (read
+// at the first launch)
+template <int KC>
+int launch_rf(const RfArgs& a, cudaStream_t stream) {
+  static int most = 0;
+  if (most == 0) most = resident_blocks(range_filter_sums_kernel<KC>, kThreads, 0);
+  range_filter_sums_kernel<KC>
+      <<<clamp_grid((a.nchunks + kWarps - 1) / kWarps, most), kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 ColPtrs pack(const void* const* ptrs, int k) {
@@ -605,27 +785,56 @@ int tidb_masked_sums(const void* const* col_ptrs, int k, const void* mask, long 
   return (int)cudaGetLastError();
 }
 
-// pred_ptrs[npred] with inclusive bounds lo[npred], hi[npred] (host
-// arrays, copied into the kernel parameters); out: int64[k + 1], zeroed
-// by the caller; out[k] is the count. npred = 0 sums every valid row.
-int tidb_range_filter_sums(const void* const* col_ptrs, int k, const void* const* pred_ptrs,
-                           int npred, const long long* lo, const long long* hi,
-                           const void* valid, long long n, void* out, void* stream) {
+// pred_ptrs[npred] with inclusive bounds lo[npred], hi[npred]; k terms,
+// term j the sum of a_ptrs[j], or of the wrapped int64 product a_ptrs[j] *
+// b_ptrs[j] where b_ptrs[j] is not null (host arrays, copied into the
+// kernel parameters). out: int64[k + 1], zeroed by the caller; out[k] is
+// the count. npred = 0 sums every valid row. A pointer named twice is one
+// buffer: an operand that is a predicate's column reuses its values.
+int tidb_range_filter_sums(const void* const* pred_ptrs, int npred, const long long* lo,
+                           const long long* hi, const void* const* a_ptrs,
+                           const void* const* b_ptrs, int k, const void* valid, long long n,
+                           void* out, void* stream) {
   if (k < 0 || k > kMaxCols || npred < 0 || npred > kMaxPreds || n < 0)
     return (int)cudaErrorInvalidValue;
-  PredArgs preds;
-  for (int p = 0; p < kMaxPreds; ++p) {
-    const bool used = p < npred;
-    preds.p[p] = used ? static_cast<const int64_t*>(pred_ptrs[p]) : nullptr;
-    preds.lo[p] = used ? lo[p] : 0;
-    preds.hi[p] = used ? hi[p] : -1;
+  if (n == 0) return (int)cudaGetLastError();
+  RfArgs a = {};
+  // the head that aligns valid to 16 bytes; a column whose row `head` it
+  // does not align takes 8-byte loads
+  long long head = (16 - (long long)(reinterpret_cast<uintptr_t>(valid) & 15u)) & 15;
+  if (head > n) head = n;
+  auto paired = [head](const void* p) {
+    return ((reinterpret_cast<uintptr_t>(p) + 8 * head) & 15u) == 0u;
+  };
+  a.keep = -1;
+  for (int p = 0; p < npred; ++p) {
+    a.pred[p] = static_cast<const long long*>(pred_ptrs[p]);
+    a.lo[p] = lo[p];
+    a.hi[p] = hi[p];
+    if (paired(pred_ptrs[p])) a.pred_pair |= 1u << p;
+    for (int j = 0; j < k && a.keep < 0; ++j)
+      if (a_ptrs[j] == pred_ptrs[p] || b_ptrs[j] == pred_ptrs[p]) a.keep = p;
   }
-  if (n > 0) {
-    range_filter_sums_kernel<<<grid_for(n, 132 * 16), kThreads, 0, (cudaStream_t)stream>>>(
-        pack(col_ptrs, k), k, preds, npred, static_cast<const bool*>(valid), (int64_t)n,
-        static_cast<unsigned long long*>(out));
+  for (int j = 0; j < k; ++j) {
+    a.a[j] = static_cast<const long long*>(a_ptrs[j]);
+    a.b[j] = static_cast<const long long*>(b_ptrs[j]);
+    if (paired(a_ptrs[j])) a.a_pair |= 1u << j;
+    if (b_ptrs[j] != nullptr && paired(b_ptrs[j])) a.b_pair |= 1u << j;
+    if (a.keep >= 0 && a_ptrs[j] == pred_ptrs[a.keep]) a.a_kept |= 1u << j;
+    if (a.keep >= 0 && b_ptrs[j] == pred_ptrs[a.keep]) a.b_kept |= 1u << j;
   }
-  return (int)cudaGetLastError();
+  a.valid = static_cast<const unsigned char*>(valid);
+  a.out = static_cast<unsigned long long*>(out);
+  a.n = n;
+  a.head = head;
+  a.npred = npred;
+  a.k = k;
+  a.nchunks = (n - head) / kMsChunk;
+  switch (rf_bucket(k)) {
+    case 1: return launch_rf<1>(a, (cudaStream_t)stream);
+    case 4: return launch_rf<4>(a, (cudaStream_t)stream);
+    default: return launch_rf<16>(a, (cudaStream_t)stream);
+  }
 }
 
 // out: int64[(k + 1) * nslots], zeroed by the caller; row k holds counts.

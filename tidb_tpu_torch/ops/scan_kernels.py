@@ -11,7 +11,10 @@ dense_group_sums  <- tidb_tpu/ops/pallas_scan.py:dense_group_sums (Q1's
 range_filter_sums <- tidb_tpu/ops/pallas_scan.py:range_filter_sums (Q6's
                      whole fragment: inclusive [lo, hi] tests on npred
                      int64 columns ANDed with valid, then int64 sums of
-                     k columns plus the count)
+                     k columns plus the count); it also sums wrapped
+                     int64 products of column pairs (`products`), so
+                     Q6's sum(l_extendedprice * l_discount) needs no
+                     product column
 
 The wrappers keep the JAX entry points' argument order and return
 layout. They route on the device of the tensors they are given: CPU
@@ -19,12 +22,17 @@ tensors run the plain version, CUDA tensors launch the kernel, and a
 wrong dtype, device or shape raises. A kernel that does not build or
 whose launch is refused raises KernelError; nothing falls back.
 
-masked_sums and dense_group_sums pass each distinct column buffer to
-their kernel once (distinct_buffers: Q1's sum and avg of one column name
-one buffer) and copy its sums into every output row that names it.
+The wrappers pass each distinct column buffer (range_filter_sums: each
+distinct term) to their kernel once (distinct_buffers: Q1's sum and avg
+of one column name one buffer) and copy its sums into every output row
+that names it.
 
-Each wrapper counts its kernel launches in `<wrapper>.launches`, so a
-run can show that its main path went through the kernel. The source
+COUNTS holds, under each wrapper's name, the launches of its kernel, so
+a run can show that its main path went through the kernel, and under
+"product_pairs" the product pairs range_filter_sums was handed (on
+either device), so a run can show that Q6 took the fold. The counters
+live in the module, not on the wrapper functions, so a caller that
+rebinds a wrapper's name (a test's spy) leaves them in place. The source
 notes (bounds, designs) are in scan_kernels.cu."""
 from __future__ import annotations
 
@@ -47,9 +55,11 @@ class KernelError(TiDBError):
 
 _FNS: dict = {}
 # the library is loaded once; connection threads of a cold server can
-# reach their first launch together, and launch counts are read across
+# reach their first launch together, and the counters are read across
 # threads
 _LOCK = threading.Lock()
+COUNTS = {"masked_sums": 0, "dense_group_sums": 0, "range_filter_sums": 0,
+          "product_pairs": 0}
 
 
 def _lib():
@@ -74,8 +84,8 @@ def _load_lib():
                                           ll, i, vp, vp]
     lib.tidb_dense_group_sums.restype = i
     lib.tidb_range_filter_sums.argtypes = [
-        ctypes.POINTER(vp), i, ctypes.POINTER(vp), i, ctypes.POINTER(ll),
-        ctypes.POINTER(ll), vp, ll, vp, vp]
+        ctypes.POINTER(vp), i, ctypes.POINTER(ll), ctypes.POINTER(ll),
+        ctypes.POINTER(vp), ctypes.POINTER(vp), i, vp, ll, vp, vp]
     lib.tidb_range_filter_sums.restype = i
     for fn in (lib.tidb_scan_max_cols, lib.tidb_scan_max_slots,
                lib.tidb_scan_max_preds):
@@ -87,9 +97,16 @@ def _load_lib():
     return lib
 
 
-def _launched(fn):
+def _count(key, n=1):
     with _LOCK:
-        fn.launches += 1
+        COUNTS[key] += n
+
+
+def reset_launches():
+    """Sets every counter to 0."""
+    with _LOCK:
+        for key in COUNTS:
+            COUNTS[key] = 0
 
 
 def _check_vec(name, t, dtype, n, device):
@@ -107,9 +124,10 @@ def _check_vec(name, t, dtype, n, device):
 
 
 def _ptr_array(cols):
+    """Device pointers of `cols` as a C array; None stays a null pointer."""
     arr = (ctypes.c_void_p * max(len(cols), 1))()
     for j, c in enumerate(cols):
-        arr[j] = c.data_ptr()
+        arr[j] = None if c is None else c.data_ptr()
     return arr
 
 
@@ -182,11 +200,8 @@ def masked_sums(columns, mask):
     rc = _lib().tidb_masked_sums(_ptr_array(distinct), k, mask.data_ptr(),
                                  n, out.data_ptr(), stream)
     _check_rc(rc, "masked_sums")
-    _launched(masked_sums)
+    _count("masked_sums")
     return _expand(out, index), out[k]
-
-
-masked_sums.launches = 0
 
 
 # ---- dense_group_sums ---------------------------------------------------
@@ -238,38 +253,64 @@ def dense_group_sums(value_cols, slots, nslots, valid):
         _ptr_array(distinct), k, slots.data_ptr(), valid.data_ptr(), n,
         nslots, out.data_ptr(), stream)
     _check_rc(rc, "dense_group_sums")
-    _launched(dense_group_sums)
+    _count("dense_group_sums")
     return _expand(out, index), out[k]
-
-
-dense_group_sums.launches = 0
 
 
 # ---- range_filter_sums --------------------------------------------------
 
-def range_filter_sums_plain(sum_cols, pred_cols, bounds, valid):
-    """Plain PyTorch range_filter_sums: the per-predicate range tests
-    ANDed into valid, then masked sums. -> (sums int64 [k], count int64 [])"""
+def _range_mask(pred_cols, bounds, valid):
     mask = valid
     for c, (lo, hi) in zip(pred_cols, bounds):
         mask = mask & (c >= lo) & (c <= hi)
-    return masked_sums_plain(sum_cols, mask)
+    return mask
 
 
-def range_filter_sums(sum_cols, pred_cols, bounds, valid):
-    """int64 sums of `sum_cols` (k int64 [n] tensors) plus the count over
-    the rows where `valid` (bool [n]) is set and every predicate column
-    (npred int64 [n] tensors) lies in its inclusive bound (`bounds`:
-    npred (lo, hi) pairs; lo > hi passes no row).
-    -> (sums int64 [k], count int64 [])."""
+def range_filter_sums_plain(sum_cols, pred_cols, bounds, valid, products=()):
+    """Plain PyTorch range_filter_sums: the per-predicate range tests
+    ANDed into valid, each pair's product a * b (int64, wrapping), then
+    masked sums. -> (sums int64 [k + len(products)], count int64 [])"""
+    return masked_sums_plain(list(sum_cols) + [a * b for a, b in products],
+                             _range_mask(pred_cols, bounds, valid))
+
+
+def _distinct_terms(sum_cols, products):
+    """-> (terms, index): the distinct terms, each (a, b) with b None for
+    a plain sum, and for each argument (the sum columns, then the pairs)
+    the position of its term. Terms are one when their operands are the
+    same buffers (distinct_buffers), in the same order."""
+    args = [(c, None) for c in sum_cols] + [tuple(p) for p in products]
+    _, buf = distinct_buffers([c for c in sum_cols] +
+                              [t for p in products for t in p])
+    ns = len(sum_cols)
+    keys = [(buf[j], -1) for j in range(ns)] + \
+        [(buf[ns + 2 * i], buf[ns + 2 * i + 1]) for i in range(len(products))]
+    seen, terms, index = {}, [], []
+    for key, arg in zip(keys, args):
+        if key not in seen:
+            seen[key] = len(terms)
+            terms.append(arg)
+        index.append(seen[key])
+    return terms, index
+
+
+def range_filter_sums(sum_cols, pred_cols, bounds, valid, products=()):
+    """int64 sums of `sum_cols` (int64 [n] tensors), then of the wrapped
+    int64 product a * b of each pair (a, b) of int64 [n] tensors in
+    `products`, plus the count, over the rows where `valid` (bool [n]) is
+    set and every predicate column (npred int64 [n] tensors) lies in its
+    inclusive bound (`bounds`: npred (lo, hi) pairs; lo > hi passes no
+    row). At most MAX_COLS sums and products together.
+    -> (sums int64 [len(sum_cols) + len(products)], count int64 [])."""
     _check_vec("valid", valid, torch.bool, None, valid.device
                if isinstance(valid, torch.Tensor) else None)
     n, dev = valid.shape[0], valid.device
     sum_cols, pred_cols = list(sum_cols), list(pred_cols)
+    products = [tuple(p) for p in products]
     bounds = [(int(lo), int(hi)) for lo, hi in bounds]
-    if len(sum_cols) > MAX_COLS:
+    if len(sum_cols) + len(products) > MAX_COLS:
         raise ValueError(f"range_filter_sums takes at most {MAX_COLS} "
-                         "sum columns")
+                         "sum columns and products")
     if len(pred_cols) > MAX_PREDS:
         raise ValueError(f"range_filter_sums takes at most {MAX_PREDS} "
                          "predicate columns")
@@ -284,29 +325,33 @@ def range_filter_sums(sum_cols, pred_cols, bounds, valid):
         _check_vec(f"sum_cols[{j}]", c, torch.int64, n, dev)
     for j, c in enumerate(pred_cols):
         _check_vec(f"pred_cols[{j}]", c, torch.int64, n, dev)
+    for j, p in enumerate(products):
+        if len(p) != 2:
+            raise ValueError(f"products[{j}]: expected a pair, got "
+                             f"{len(p)} tensors")
+        for t, c in zip("ab", p):
+            _check_vec(f"products[{j}].{t}", c, torch.int64, n, dev)
+    terms, index = _distinct_terms(sum_cols, products)
+    _count("product_pairs", len(products))
     if dev.type == "cpu":
-        return range_filter_sums_plain(sum_cols, pred_cols, bounds, valid)
+        sums, count = masked_sums_plain(
+            [a if b is None else a * b for a, b in terms],
+            _range_mask(pred_cols, bounds, valid))
+        return _expand(sums, index), count
     if dev.type != "cuda":
         raise ValueError(f"range_filter_sums: unsupported device {dev}")
-    k, npred = len(sum_cols), len(pred_cols)
+    k, npred = len(terms), len(pred_cols)
     out = torch.zeros(k + 1, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lo = (ctypes.c_longlong * max(npred, 1))(*(b[0] for b in bounds))
     hi = (ctypes.c_longlong * max(npred, 1))(*(b[1] for b in bounds))
     rc = _lib().tidb_range_filter_sums(
-        _ptr_array(sum_cols), k, _ptr_array(pred_cols), npred, lo, hi,
-        valid.data_ptr(), n, out.data_ptr(), stream)
+        _ptr_array(pred_cols), npred, lo, hi,
+        _ptr_array([a for a, _b in terms]), _ptr_array([b for _a, b in terms]),
+        k, valid.data_ptr(), n, out.data_ptr(), stream)
     _check_rc(rc, "range_filter_sums")
-    _launched(range_filter_sums)
-    return out[:k], out[k]
-
-
-range_filter_sums.launches = 0
+    _count("range_filter_sums")
+    return _expand(out, index), out[k]
 
 
 KERNELS = (masked_sums, dense_group_sums, range_filter_sums)
-
-
-def reset_launches():
-    for fn in KERNELS:
-        fn.launches = 0
