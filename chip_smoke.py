@@ -2,9 +2,16 @@
 hand-written kernels, holds each against its plain PyTorch version,
 times them, then runs TPC-H Q6, Q1 and a global aggregate without range
 filters at SF1 from SQL to rows through the package's normal entry point
-(TestKit on the card), and the same three again through the package's
-MySQL wire server, with a raw-socket client. Each kernel's launches are
-counted per path, and so are the product pairs Q6 folds into
+(TestKit on the card), then the join queries whose fused fragments probe
+dimension tables on the card (Q3, Q4, Q5, Q10, Q12, Q14, Q19, Q22), and
+Q6, Q1, the global aggregate, Q3 and Q5 again through the package's
+MySQL wire server, with a raw-socket client. Every statement's rows are
+held to the reference package's committed SF1 rows (or a numpy oracle),
+and its route to the counters of the fused path. Each kernel is held to
+its plain version on inputs built from the loaded tables and on edge
+cases, and, in one more warm statement of every TestKit query, on the
+very tensors each fragment hands its wrapper. Each kernel's launches
+are counted per path, and so are the product pairs Q6 folds into
 range_filter_sums (one per partition and statement).
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one
@@ -30,6 +37,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SF, SEED = 1.0, 7
 WARM_RUNS = 5
 I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
+T_START = time.perf_counter()
 
 
 def log(*a):
@@ -374,24 +382,71 @@ def range_layout_case(n, moff, coff, mask_kind, alias, nslots, extreme,
                                            (cols[-1], cols[-1])]
 
 
+# each kernel's largest difference from its plain version, over every
+# comparison the script makes (exact int64: it must stay 0)
+ERR = {"masked_sums": 0, "dense_group_sums": 0, "range_filter_sums": 0}
+
+
+def cmp(name, got, want):
+    """A kernel wrapper's result == its plain version's, tensor by
+    tensor, exactly; records the largest difference in ERR."""
+    import torch
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.equal(g, w):
+            d = (g - w).abs().max().item() if g.shape == w.shape \
+                else float("inf")
+            fail(f"{name} disagrees with its plain version "
+                 f"(max abs err {d}, shapes {list(g.shape)} "
+                 f"{list(w.shape)})")
+        if g.numel():
+            ERR[name] = max(ERR[name], (g - w).abs().max().item())
+
+
+def checked_kernels(run):
+    """Runs `run()` with each kernel wrapper of scan_kernels replaced by
+    one that calls the wrapper (whose launch counts as the path's own),
+    then the plain version on the same device tensors, and cmp()s the
+    two: the kernels held to their plain versions at the shapes and on
+    the data the fragments really give them. The plain versions launch
+    no kernel and count nothing. -> (run's result, [(name, shape)] of
+    the calls, shape as "n=.. k=.. nslots=..")."""
+    from tidb_tpu_torch.ops import scan_kernels as sk
+    calls = []
+    saved = {fn.__name__: getattr(sk, fn.__name__) for fn in sk.KERNELS}
+
+    def checking(name, wrapper):
+        plain = getattr(sk, name + "_plain")
+
+        def call(*args, **kw):
+            got = wrapper(*args, **kw)
+            cmp(name, got, plain(*args, **kw))
+            cols, rest = list(args[0]), args[1:]
+            n = rest[0].numel() if name == "dense_group_sums" else \
+                rest[-1].numel() if name == "masked_sums" else \
+                (args[3] if len(args) > 3 else kw["valid"]).numel()
+            shape = f"n={n} k={len(cols)}"
+            if name == "dense_group_sums":
+                shape += f" nslots={int(rest[1])}"
+            calls.append((name, shape))
+            return got
+        return call
+    for name, wrapper in saved.items():
+        setattr(sk, name, checking(name, wrapper))
+    try:
+        return run(), calls
+    finally:
+        for name, wrapper in saved.items():
+            setattr(sk, name, wrapper)
+
+
 def phase_kernels(parts):
     """Each kernel == its plain version (exact int64) at the main-path
-    shapes and on the edge cases; then timings at the largest
-    partition. -> per-kernel record."""
+    shapes built from the loaded tables and on the edge cases; then
+    timings at the largest partition. The fragments' own calls are held
+    to the plain versions in phase_sql (checked_kernels). -> per-kernel
+    record (the differences go to ERR)."""
     import torch
     from tidb_tpu_torch.ops import scan_kernels as sk
-    err = {"masked_sums": 0, "dense_group_sums": 0, "range_filter_sums": 0}
-
-    def cmp(name, got, want):
-        for g, w in zip(got, want):
-            if g.shape != w.shape or not torch.equal(g, w):
-                d = (g - w).abs().max().item() if g.shape == w.shape \
-                    else float("inf")
-                fail(f"{name} disagrees with its plain version "
-                     f"(max abs err {d}, shapes {list(g.shape)} "
-                     f"{list(w.shape)})")
-            if g.numel():
-                err[name] = max(err[name], (g - w).abs().max().item())
     for p in parts:
         cols, mask = p["qsum"]
         cmp("masked_sums", sk.masked_sums(cols, mask),
@@ -485,7 +540,7 @@ def phase_kernels(parts):
     for r in rows:
         if r[0] not in big or r[1] > big[r[0]][1]:
             big[r[0]] = r
-    return err, big
+    return big
 
 
 # (query, kernel its statements must launch once per partition,
@@ -500,91 +555,164 @@ ROUTE_COUNTERS = ("fused_pipeline_hit", "copr_host_exec",
                   "fused_pipeline_fallback", "fused_pipeline_error")
 
 
+# the join queries: (query, fact table, kernel each partition's fragment
+# launches once, or None for the torch scatter of a posdense domain over
+# 64 slots). Each statement runs one fused fragment; Q22's first run
+# also runs its scalar subquery, a zero-dim global aggregate through
+# range_filter_sums (the cached plan holds its value afterwards).
+JOIN_CASES = (("q3", "lineitem", None),
+              ("q4", "orders", "dense_group_sums"),
+              ("q5", "lineitem", "dense_group_sums"),
+              ("q10", "lineitem", None),
+              ("q12", "lineitem", "dense_group_sums"),
+              ("q14", "lineitem", "masked_sums"),
+              ("q19", "lineitem", "masked_sums"),
+              ("q22", "customer", "dense_group_sums"))
+
+
+def table_rows(tk, table):
+    dom = tk.domain
+    return dom.columnar.tables[dom.infoschema().table_by_name(
+        "test", table).id].n
+
+
+def partitions_of(tk, table):
+    """Fact partitions of `table`: fragments a statement over it runs."""
+    return -(-table_rows(tk, table) // tk.domain.copr.device_rows)
+
+
+def route_of(tk, q, nparts, first=False):
+    """-> (launches, absent kernels, folded pairs, fused fragments) that
+    query q's statement must show, on its first run or a later one;
+    nparts is lineitem's partitions."""
+    kernels = ("masked_sums", "dense_group_sums", "range_filter_sums")
+    case = next((c for c in SQL_CASES if c[0] == q), None)
+    if case is not None:
+        _q, kname, absent, pairs = case
+        return {kname: nparts}, absent, pairs * nparts, 1
+    _q, fact, kname = next(c for c in JOIN_CASES if c[0] == q)
+    launches = {} if kname is None else {kname: partitions_of(tk, fact)}
+    frags = 1
+    if q == "q22" and first:
+        launches["range_filter_sums"] = 1        # its scalar subquery
+        frags = 2
+    return launches, tuple(k for k in kernels if k not in launches), 0, \
+        frags
+
+
 def sql_and_rows(tk, exp, q):
-    """-> (sql, expected rows): Q6 and Q1 from the committed reference
-    rows, each also held to its numpy oracle; QSUM from its oracle."""
+    """-> (sql, expected rows): a query of the committed reference rows
+    from them (Q6, Q1, Q3 and Q5 also held to their numpy oracles), QSUM
+    from its oracle."""
     from tidb_tpu_torch.bench import tpch
-    sql, oracle = {"q6": (tpch.Q6, tpch.q6_oracle),
-                   "q1": (tpch.Q1, tpch.q1_oracle),
-                   "qsum": (tpch.QSUM, tpch.qsum_oracle)}[q]
-    orc = oracle(tk)
-    want = [tuple(r) for r in exp[q]] if q in exp else orc
-    if orc != want:
-        fail(f"{q}: numpy oracle {orc} != expected rows {want}")
+    oracle = {"q6": tpch.q6_oracle, "q1": tpch.q1_oracle,
+              "q3": tpch.q3_oracle, "q5": tpch.q5_oracle,
+              "qsum": tpch.qsum_oracle}.get(q)
+    sql = tpch.QSUM if q == "qsum" else tpch.ALL_QUERIES[q]
+    if q not in exp:
+        return sql, oracle(tk)
+    want = [tuple(r) for r in exp[q]]
+    if oracle is not None and oracle(tk) != want:
+        fail(f"{q}: numpy oracle {oracle(tk)} != expected rows {want}")
     return sql, want
 
 
-def check_route(q, run, dom, m0, kern, l0, nparts, absent, a0, pairs,
-                pairs0):
-    """The statement took the fused device path through kernel `kern`
-    (its count went from l0) and not through the kernels named in
-    `absent` (from a0), and folded `pairs` product pairs into
-    range_filter_sums per partition (the count went from pairs0)."""
+def check_route(q, run, dom, m0, c0, launches, absent=(), pairs=0,
+                fragments=1):
+    """The statement ran `fragments` fused device fragments and nothing on
+    the host path; each kernel in `launches` launched that many times
+    and the kernels named in `absent` not at all (counts from the
+    snapshot c0 of scan_kernels.COUNTS), and it folded `pairs` product
+    pairs into range_filter_sums."""
     from tidb_tpu_torch.ops import scan_kernels as sk
-    folded = sk.COUNTS["product_pairs"] - pairs0
-    if folded != pairs * nparts:
-        fail(f"{q} {run}: folded {folded} product pairs, expected "
-             f"{pairs} per partition")
+    folded = sk.COUNTS["product_pairs"] - c0["product_pairs"]
+    if folded != pairs:
+        fail(f"{q} {run}: folded {folded} product pairs, expected {pairs}")
     d = {c: dom.metrics.get(c, 0) - m0[c] for c in ROUTE_COUNTERS}
-    if d["fused_pipeline_hit"] != 1:
-        fail(f"{q} {run}: did not take the fused device path "
-             f"({dom.last_fused_reason})")
+    if d["fused_pipeline_hit"] != fragments:
+        fail(f"{q} {run}: ran {d['fused_pipeline_hit']} fused device "
+             f"fragments, expected {fragments} ({dom.last_fused_reason})")
     for c in ROUTE_COUNTERS[1:]:
         if d[c]:
             fail(f"{q} {run}: {c} = {d[c]}")
-    if sk.COUNTS[kern] - l0 != nparts:
-        fail(f"{q} {run}: {kern} launched {sk.COUNTS[kern] - l0} "
-             f"times, not once per partition ({nparts})")
-    for name, n0 in zip(absent, a0):
-        if sk.COUNTS[name] != n0:
-            fail(f"{q} {run}: {name} launched {sk.COUNTS[name] - n0} "
-                 "times")
+    for name, n in launches.items():
+        if sk.COUNTS[name] - c0[name] != n:
+            fail(f"{q} {run}: {name} launched {sk.COUNTS[name] - c0[name]}"
+                 f" times, expected {n}")
+    for name in absent:
+        if sk.COUNTS[name] != c0[name]:
+            fail(f"{q} {run}: {name} launched {sk.COUNTS[name] - c0[name]}"
+                 " times")
 
 
-def phase_sql(tk, exp, nparts):
-    """Q6, Q1 and QSUM through SQL on the card: cold once, warm
-    WARM_RUNS times; rows == numpy oracle (== committed expected rows
-    for Q6 and Q1). -> {query: warm median ms}."""
+def check_phase(q, i, snap):
+    """A statement's phase counters: nothing ran on the host path, and a
+    warm run (i > 0) uploaded nothing (dims included)."""
+    for c in ("device_fallbacks", "fused_fallbacks", "host_execs"):
+        if snap.get(c, 0):
+            fail(f"{q} run {i}: {c} = {snap[c]}")
+    if i > 0 and snap.get("upload_bytes", 0):
+        fail(f"{q} warm run {i}: uploaded {snap['upload_bytes']} bytes")
+
+
+def phase_line(snap):
+    return " ".join(f"{k}={snap.get(k, 0)}" for k in (
+        "dispatches", "syncs", "upload_bytes", "mask_upload_bytes",
+        "fetch_bytes"))
+
+
+def phase_sql(tk, exp, nparts, queries):
+    """`queries` through SQL on the card: cold once, warm WARM_RUNS
+    times, then once more with every kernel call the fragments make held
+    to its plain version on the same tensors (checked_kernels); rows ==
+    the committed reference rows or the numpy oracle (sql_and_rows), the
+    route of route_of, no host path, warm statements upload nothing
+    (dims included). -> {query: warm median ms}."""
+    from collections import Counter
     from tidb_tpu_torch.ops import scan_kernels as sk
     from tidb_tpu_torch.utils import phase
     dom = tk.domain
-    nrows = dom.columnar.tables[
-        dom.infoschema().table_by_name("test", "lineitem").id].n
     meds = {}
-    for q, kname, absent_names, pairs in SQL_CASES:
+    for q in queries:
         sql, want = sql_and_rows(tk, exp, q)
-        warm = []
-        for i in range(1 + WARM_RUNS):
+        fact = next((c[1] for c in JOIN_CASES if c[0] == q), "lineitem")
+        warm, calls = [], []
+        for i in range(2 + WARM_RUNS):
+            checked = i == 1 + WARM_RUNS
+            launches, absent, pairs, frags = route_of(tk, q, nparts, i == 0)
             m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS}
-            l0, a0 = sk.COUNTS[kname], [sk.COUNTS[a] for a in absent_names]
-            pairs0 = sk.COUNTS["product_pairs"]
+            c0 = dict(sk.COUNTS)
             t0 = time.perf_counter()
-            got = tk.must_query(sql)._norm()
+            if checked:
+                got, calls = checked_kernels(
+                    lambda: tk.must_query(sql)._norm())
+            else:
+                got = tk.must_query(sql)._norm()
             ms = (time.perf_counter() - t0) * 1e3
             snap = phase.snap()
             if got != want:
                 fail(f"{q} run {i}: rows {got} != expected {want}")
-            check_route(q, f"run {i}", dom, m0, kname, l0, nparts,
-                        absent_names, a0, pairs, pairs0)
-            for c in ("device_fallbacks", "fused_fallbacks", "host_execs"):
-                if snap.get(c, 0):
-                    fail(f"{q} run {i}: {c} = {snap[c]}")
-            if i > 0 and snap.get("upload_bytes", 0):
-                fail(f"{q} warm run {i}: uploaded {snap['upload_bytes']} "
-                     "bytes")
-            if i > 0:
+            check_route(q, f"run {i}", dom, m0, c0, launches, absent,
+                        pairs, frags)
+            check_phase(q, i, snap)
+            if 0 < i and not checked:
                 warm.append(ms)
-            log(f"sql {q} {'cold' if i == 0 else 'warm'} {ms:.2f} ms "
-                f"dispatches={snap.get('dispatches', 0)} "
-                f"syncs={snap.get('syncs', 0)} "
-                f"upload_bytes={snap.get('upload_bytes', 0)} "
-                f"mask_upload_bytes={snap.get('mask_upload_bytes', 0)} "
-                f"launches={sk.COUNTS[kname] - l0} product_pairs="
-                f"{sk.COUNTS['product_pairs'] - pairs0}")
+            kind = "cold" if i == 0 else "checked" if checked else "warm"
+            log(f"sql {q} {kind} {ms:.2f} ms {phase_line(snap)} launches=" + json.dumps(
+                    {k: sk.COUNTS[k] - c0[k] for k in launches}) +
+                f" product_pairs="
+                f"{sk.COUNTS['product_pairs'] - c0['product_pairs']}")
+        for name, n in launches.items():
+            if sum(c[0] == name for c in calls) != n:
+                fail(f"{q}: {n} {name} launches, "
+                     f"{sum(c[0] == name for c in calls)} checked")
+        log(f"sql {q}: kernel calls == plain versions on the same tensors: "
+            + ("; ".join(f"{name} {shape} x{k}" for (name, shape), k in
+                         sorted(Counter(calls).items())) or "none"))
         meds[q] = statistics.median(warm)
-        log(f"sql {q}: rows == numpy oracle{' == expected' if q in exp else ''}"
+        log(f"sql {q}: rows == {'expected' if q in exp else 'numpy oracle'}"
             f" ({len(want)} rows); warm median {meds[q]:.3f} ms, "
-            f"{nrows / meds[q] * 1e3:.4g} lineitem rows/s")
+            f"{table_rows(tk, fact) / meds[q] * 1e3:.4g} {fact} rows/s")
     return meds
 
 
@@ -708,10 +836,10 @@ class WireClient:
 
 
 def phase_wire(tk, exp, nparts, testkit_meds):
-    """Q6 (first, then WARM_RUNS warm), Q1 and QSUM over the package's
-    MySQL wire server on the loaded SF1 domain. The server answers on its own
-    thread, so the route is read from counters every thread sees: the
-    domain's and the kernel wrappers' launch counts."""
+    """Q6 (first, then WARM_RUNS warm), Q1, QSUM, Q3 and Q5 over the
+    package's MySQL wire server on the loaded SF1 domain. The server
+    answers on its own thread, so the route is read from counters every
+    thread sees: the domain's and the kernel wrappers' launch counts."""
     from tidb_tpu_torch.ops import scan_kernels as sk
     from tidb_tpu_torch.server import Server
     dom = tk.domain
@@ -721,33 +849,33 @@ def phase_wire(tk, exp, nparts, testkit_meds):
         try:
             warm = []
             for q, run in [("q6", i) for i in range(1 + WARM_RUNS)] + \
-                    [("q1", 0), ("qsum", 0)]:
+                    [("q1", 0), ("qsum", 0), ("q3", 0), ("q5", 0)]:
                 sql, want = sql_and_rows(tk, exp, q)
-                _q, kname, absent_names, pairs = next(c for c in SQL_CASES
-                                                      if c[0] == q)
+                launches, absent_names, pairs, frags = route_of(tk, q,
+                                                                nparts)
                 m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS}
-                l0, a0 = sk.COUNTS[kname], [sk.COUNTS[a] for a in absent_names]
-                pairs0 = sk.COUNTS["product_pairs"]
+                c0 = dict(sk.COUNTS)
                 t0 = time.perf_counter()
                 got = client.query(sql)["rows"]
                 ms = (time.perf_counter() - t0) * 1e3
                 if got != want:
                     fail(f"wire {q} run {run}: rows {got} != expected "
                          f"{want}")
-                check_route(f"wire {q}", f"run {run}", dom, m0, kname, l0,
-                            nparts, absent_names, a0, pairs, pairs0)
+                check_route(f"wire {q}", f"run {run}", dom, m0, c0,
+                            launches, absent_names, pairs, frags)
                 if q == "q6" and run > 0:
                     warm.append(ms)
                 log(f"wire {q} {'first' if run == 0 else 'warm'} "
-                    f"{ms:.2f} ms launches={sk.COUNTS[kname] - l0}")
+                    f"{ms:.2f} ms launches=" + json.dumps(
+                        {k: sk.COUNTS[k] - c0[k] for k in launches}))
         finally:
             client.close()
     finally:
         srv.shutdown()
     med = statistics.median(warm)
     log(f"wire q6: rows == expected over the MySQL protocol; warm median "
-        f"{med:.3f} ms (TestKit {testkit_meds['q6']:.3f} ms); q1 and qsum "
-        "== expected")
+        f"{med:.3f} ms (TestKit {testkit_meds['q6']:.3f} ms); q1, qsum, "
+        "q3 and q5 == expected")
     return med
 
 
@@ -772,14 +900,14 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     parts = main_path_inputs(tk)
     nparts = len(parts)
-    err, big = phase_kernels(parts)
+    big = phase_kernels(parts)
     del parts
     torch.cuda.empty_cache()
     # each path's launches: counts set to 0 just before it, read just
     # after; the kernel phase's launches count on neither
     by_path, pairs_by_path = {}, {}
 
-    def counted(path, run):
+    def counted(path, run, folds=True):
         sk.reset_launches()
         out = run()
         by_path[path] = {fn.__name__: sk.COUNTS[fn.__name__]
@@ -788,10 +916,16 @@ def main():
         for name, n in by_path[path].items():
             if n == 0:
                 fail(f"{name} was not launched on the {path} path")
-        if pairs_by_path[path] == 0:
+        if folds and pairs_by_path[path] == 0:
             fail(f"no product pair was folded on the {path} path")
         return out
-    meds = counted("sql", lambda: phase_sql(tk, exp, nparts))
+    meds = counted("sql", lambda: phase_sql(
+        tk, exp, nparts, [c[0] for c in SQL_CASES]))
+    t0 = time.perf_counter()
+    join_meds = counted("joins", lambda: phase_sql(
+        tk, exp, nparts, [c[0] for c in JOIN_CASES]), folds=False)
+    log(f"join phase {time.perf_counter() - t0:.1f} s; warm medians ms: "
+        f"{json.dumps(join_meds)}")
     counted("wire", lambda: phase_wire(tk, exp, nparts, meds))
     log(f"launches by path: {json.dumps(by_path)}; folded product pairs "
         f"by path: {json.dumps(pairs_by_path)}")
@@ -807,7 +941,7 @@ def main():
             "replaces": replaces[name],
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
-            "max_abs_err": err[name], "ms": r[4], "plain_ms": r[5],
+            "max_abs_err": ERR[name], "ms": r[4], "plain_ms": r[5],
             "bound_ms": r[7], "bound_by": "bytes", "library_ms": r[6],
             "kernel_device_ms": r[9]}
         rec["redesigned_in"] = 4 if name == "range_filter_sums" else 3
@@ -816,6 +950,7 @@ def main():
             rec["product_pairs_by_path"] = pairs_by_path
         kernels.append(rec)
     log(f"card: {card}")
+    log(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

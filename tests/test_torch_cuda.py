@@ -109,3 +109,44 @@ def test_fused_error_fails_statement_on_card():
     snap = phase.snap()
     for key in ("fused_fallbacks", "device_fallbacks", "host_execs"):
         assert snap.get(key, 0) == 0, (key, snap)
+
+
+def test_probe_out_of_range_keys_on_card():
+    """The dimension probe's gathers stay inside their tables on the
+    card (torch raises a device-side assert on an index out of range,
+    which would poison the context): keys below lo, past the lut, at the
+    int64 ends and in the sorted keys' padding miss."""
+    from tidb_tpu_torch.copr.pipeline import _probe
+    big = (1 << 63) - 1
+    pv = torch.tensor([-(1 << 63), -1, 0, 3, 9, 10, 11, big],
+                      dtype=torch.int64, device="cuda")
+    miss = torch.zeros(8, dtype=torch.bool, device="cuda")
+    want = [False, False, False, True, True, True, False, False]
+    lut = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7, 8, 8], device="cuda")
+    pos, hit = _probe({"lut": lut, "lsize": 8, "lo": 3}, pv, miss, 8, 8, 8)
+    torch.cuda.synchronize()
+    assert hit.tolist() == want and 0 <= int(pos.min()) <= int(pos.max()) < 8
+    sk_ = torch.tensor([3, 9, 10, big], device="cuda")
+    pos, hit = _probe({"sk": sk_, "ord": torch.tensor([2, 0, 1, 0],
+                                                      device="cuda")},
+                      pv, miss, 4, 3, 3)
+    torch.cuda.synchronize()
+    assert hit.tolist() == want and pos[3:6].tolist() == [2, 0, 1]
+
+
+def test_join_queries_on_card():
+    """TPC-H Q3 and Q5 through TestKit on the card equal their numpy
+    oracles, fused with their dimension probes; Q5's 25 nation slots
+    reach dense_group_sums once per partition."""
+    from tidb_tpu_torch.bench import tpch
+    from tidb_tpu_torch.testkit import TestKit
+    tk = TestKit()
+    tpch.load_tpch(tk, sf=0.01, seed=3)
+    for q, oracle in (("q3", tpch.q3_oracle), ("q5", tpch.q5_oracle)):
+        hits = tk.domain.metrics.get("fused_pipeline_hit", 0)
+        sk.reset_launches()
+        assert tk.must_query(tpch.QUERIES[q])._norm() == oracle(tk)
+        assert tk.domain.metrics.get("fused_pipeline_hit", 0) == hits + 1
+        assert tk.domain.last_fused_reason is None
+        if q == "q5":
+            assert sk.COUNTS["dense_group_sums"] == 1

@@ -1,4 +1,5 @@
-"""tidb_tpu_torch stands alone: it runs SQL, its range lowering and its
+"""tidb_tpu_torch stands alone: it runs SQL (TPC-H Q6 and Q3, fused
+with its dimension probes), its range lowering and its
 wire server with jax and tidb_tpu blocked from import, no module of it
 (nor chip_smoke.py) imports them,
 and its entry points refuse to run on the host unless asked to."""
@@ -39,12 +40,16 @@ rows = tk.must_query(tpch.Q6)._norm()
 assert rows == tpch.q6_oracle(tk), rows
 assert tk.domain.metrics.get("fused_pipeline_hit") == 1
 assert calls, "Q6 did not reach range_filter_sums"
+rows3 = tk.must_query(tpch.Q3)._norm()
+assert rows3 == tpch.q3_oracle(tk), rows3
+assert tk.domain.metrics.get("fused_pipeline_hit") == 2
+assert tk.domain.last_fused_reason is None
 srv.shutdown()
 st.shutdown()
 bad = [m for m in sys.modules if m in ("jax", "jaxlib", "tidb_tpu")
        or m.startswith(("jax.", "jaxlib.", "tidb_tpu."))]
 assert not bad, bad
-print("Q6", rows[0][0])
+print("Q6", rows[0][0], "Q3", rows3[0][0])
 """
 
 

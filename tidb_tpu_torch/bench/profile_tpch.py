@@ -1,8 +1,8 @@
-"""Where a TPC-H statement's time goes on the card: Q6 and Q1 through
-TestKit on CUDA, cold once and then warm. It is the trace tool a
-performance change starts from (chip_smoke.py checks, this explains), and
-it runs the sizes chip_smoke.py does not: `--sf 10` is Q1's size in
-BASELINE.md.
+"""Where a TPC-H statement's time goes on the card: Q6, Q1 and the join
+queries Q3 and Q5 through TestKit on CUDA, cold once and then warm. It
+is the trace tool a performance change starts from (chip_smoke.py
+checks, this explains), and it runs the sizes chip_smoke.py does not:
+`--sf 10` is Q1's size in BASELINE.md.
 
 It reports the load's wall time and the process's peak resident memory
 after the load and at the end, and checks each query's rows against the
@@ -11,9 +11,14 @@ numpy oracle (bench/tpch.py), failing on a mismatch. For each query
     in torch.cuda.synchronize) and lineitem rows scanned per second;
   - the device's busy time over the same statements under
     torch.profiler (the union of the CUDA kernel and copy intervals),
-    hence its idle share, the device time by kernel name, and the
-    elementwise multiplication kernels per statement (Q6 folds its
-    product into range_filter_sums, so it has none);
+    hence its idle share, the device time by kernel name and by op
+    class (gathers, scatters, searchsorted, the scan kernels,
+    copies, the rest), and the elementwise multiplication kernels per
+    statement (Q6 folds its product into range_filter_sums, so it has
+    none);
+  - one warm statement's phase counters: fragment dispatches, host
+    syncs, the bytes fetched from the card and the time spent waiting
+    for them (fetch_bytes, sync_s), uploads;
   - a host breakdown from cProfile: cumulative seconds per statement in
     the engine's stages (analyze, snapshot, upload, fragment enqueue,
     kernel wrappers, fetch + compaction, final merge). cProfile slows
@@ -21,7 +26,8 @@ numpy oracle (bench/tpch.py), failing on a mismatch. For each query
 
 Run from the repository root on a machine with one CUDA card:
     python -m tidb_tpu_torch.bench.profile_tpch [--sf 1.0] [--seed 7]
-        [--runs 5] [--out chiprun_out/profile_tpch.json]
+        [--runs 5] [--queries q6,q1,q3,q5]
+        [--out chiprun_out/profile_tpch.json]
 It prints one line per measurement and writes the whole record as JSON
 to --out. Without a CUDA device it exits non-zero."""
 from __future__ import annotations
@@ -44,12 +50,17 @@ STAGES = [
     ("stats_analyze", "stats/analyze.py", "analyze_one"),
     ("fused_partials", "copr/pipeline.py", "_fused_partials_inner"),
     ("snapshot", "storage/columnar.py", "snapshot"),
+    ("dim_meta", "copr/pipeline.py", "_dim_sort_meta"),
+    ("dim_upload", "copr/pipeline.py", "_upload_dim"),
     ("upload", "copr/dag_exec.py", "_pad_upload"),
     ("fragment_enqueue", "copr/pipeline.py", "body"),
+    ("dim_probe_enqueue", "copr/pipeline.py", "_apply_dims"),
     ("masked_sums_wrapper", "ops/scan_kernels.py", "masked_sums"),
     ("dense_group_sums_wrapper", "ops/scan_kernels.py", "dense_group_sums"),
     ("range_filter_sums_wrapper", "ops/scan_kernels.py", "range_filter_sums"),
     ("fetch_and_compact", "copr/dag_exec.py", "_compact_dense"),
+    ("fetch_and_compact_posdense", "copr/pipeline.py",
+     "_compact_pos_dense"),
     ("final_merge", "executor/executors.py", "_merge_partials"),
 ]
 
@@ -85,11 +96,30 @@ def _busy_us(events):
     return busy
 
 
+# op classes of device kernel names, first match wins: (class, name
+# fragments)
+OP_CLASSES = [
+    ("scan_kernels", ("masked_sums", "dense_group_sums",
+                      "range_filter_sums")),
+    ("copies", ("Memcpy", "Memset", "memcpy", "memset")),
+    ("searchsorted", ("searchsorted",)),
+    ("scatter", ("indexFunc", "index_add", "scatter", "Scatter")),
+    ("gathers", ("index_elementwise", "Index", "gather", "Gather")),
+]
+
+
+def _op_class(name):
+    for cls, frags in OP_CLASSES:
+        if any(f in name for f in frags):
+            return cls
+    return "elementwise_and_other"
+
+
 def _device_profile(torch, run, nstmts):
     """Run `run` under torch.profiler -> (wall s, busy s or None,
     [(kernel name, device ms per statement, calls per statement)], the
     elementwise multiplication kernels (torch's MulFunctor) per
-    statement)."""
+    statement, {op class: device ms per statement})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -101,7 +131,7 @@ def _device_profile(torch, run, nstmts):
         wall = time.perf_counter() - t0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
-        return wall, None, [], None
+        return wall, None, [], None, {}
     by = {}
     for e in dev:
         ms, n = by.get(e.name, (0.0, 0))
@@ -109,9 +139,13 @@ def _device_profile(torch, run, nstmts):
                       n + 1)
     top = sorted(by.items(), key=lambda kv: -kv[1][0])[:12]
     muls = sum(n for name, (_ms, n) in by.items() if "MulFunctor" in name)
+    classes = {}
+    for name, (ms, _n) in by.items():
+        cls = _op_class(name)
+        classes[cls] = classes.get(cls, 0.0) + ms / nstmts
     return wall, _busy_us(dev) / 1e6, [
         (name[:90], ms / nstmts, n / nstmts) for name, (ms, n) in top], \
-        muls / nstmts
+        muls / nstmts, classes
 
 
 def _peak_rss_gib():
@@ -124,6 +158,8 @@ def main(argv=None):
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--queries", default="q6,q1,q3,q5",
+                    help="comma-separated, of q6, q1, q3, q5")
     ap.add_argument("--out", default=os.path.join("chiprun_out",
                                                    "profile_tpch.json"))
     args = ap.parse_args(argv)
@@ -132,6 +168,7 @@ def main(argv=None):
         print("profile_tpch: no CUDA device", file=sys.stderr)
         return 2
     from ..testkit import TestKit
+    from ..utils import phase
     from . import tpch
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -156,8 +193,9 @@ def main(argv=None):
     print(f"load SF{args.sf} seed {args.seed}: {nrows} lineitem rows in "
           f"{load_s:.1f} s, peak RSS {rec['peak_rss_gib_after_load']:.2f} "
           "GiB", flush=True)
-    oracles = {"q6": tpch.q6_oracle, "q1": tpch.q1_oracle}
-    for q in ("q6", "q1"):
+    oracles = {"q6": tpch.q6_oracle, "q1": tpch.q1_oracle,
+               "q3": tpch.q3_oracle, "q5": tpch.q5_oracle}
+    for q in args.queries.split(","):
         sql = tpch.QUERIES[q]
         r = rec["queries"][q] = {}
         prof = cProfile.Profile()
@@ -184,12 +222,23 @@ def main(argv=None):
         r["warm_ms"] = walls
         r["warm_ms_median"] = statistics.median(walls)
         r["rows_per_s"] = nrows / (r["warm_ms_median"] / 1e3)
+        phase.reset()
+        tk.must_query(sql)
+        # one warm statement's counters; phase.snap gives times in ms
+        r["warm_phase"] = {(k[:-2] + "_ms" if k.endswith("_s") else k): v
+                           for k, v in phase.snap().items()
+                           if isinstance(v, (int, float))}
+        r["fused_pipeline_hit"] = tk.domain.metrics.get(
+            "fused_pipeline_hit", 0)
+        r["last_fused_reason"] = tk.domain.last_fused_reason
 
         def run():
             for _ in range(args.runs):
                 tk.must_query(sql)
-        wall, busy, top, muls = _device_profile(torch, run, args.runs)
+        wall, busy, top, muls, classes = _device_profile(torch, run,
+                                                         args.runs)
         r["mul_kernels_per_stmt"] = muls
+        r["device_ms_by_op_class"] = classes
         r["profiled_wall_ms_per_stmt"] = wall * 1e3 / args.runs
         if busy is None:
             r["device_busy_ms_per_stmt"] = None
@@ -225,6 +274,15 @@ def main(argv=None):
         for name, ms, calls in top:
             print(f"{q}:   device {ms:.4f} ms/stmt {calls:g} calls/stmt "
                   f"{name}", flush=True)
+        print(f"{q}: device ms/stmt by op class " + ", ".join(
+            f"{k}={v:.4f}" for k, v in sorted(classes.items())), flush=True)
+        wp = r["warm_phase"]
+        print(f"{q}: warm phase " + ", ".join(
+            f"{k}={wp.get(k, 0)}" for k in (
+                "dispatches", "syncs", "fetches", "fetch_bytes", "sync_ms",
+                "upload_bytes", "mask_upload_bytes")) +
+            f"; fused hits so far {r['fused_pipeline_hit']}, last "
+            f"decline {r['last_fused_reason']}", flush=True)
         for phase_name in ("cold_stage_ms", "warm_stage_ms"):
             print(f"{q}: {phase_name} " + ", ".join(
                 f"{k}={v:.3f}" for k, v in r[phase_name].items()),

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..types.time_types import parse_date
+from ..types.time_types import days_to_str, parse_date
 
 DDL = {
     "region": """create table region (
@@ -302,10 +302,10 @@ def load_tpch(tk, sf: float = 0.01, seed: int = 7, skip_tables=()):
 # output column), so an answer from the SQL path can be held to it
 # without running the engine twice.
 
-def _lineitem(tk, *cols):
-    """-> per column (data, dict values or None): dictionary columns as
-    their int32 codes."""
-    tbl = tk.domain.infoschema().table_by_name("test", "lineitem")
+def _columns(tk, table, *cols):
+    """-> per column of `table` (data, dict values or None): dictionary
+    columns as their int32 codes."""
+    tbl = tk.domain.infoschema().table_by_name("test", table)
     ctab = tk.domain.columnar.tables[tbl.id]
     out = []
     for c in cols:
@@ -314,6 +314,25 @@ def _lineitem(tk, *cols):
         out.append((ctab.data[ci.id][:ctab.n],
                     None if d is None else list(d.values)))
     return out
+
+
+def _lineitem(tk, *cols):
+    """_columns of lineitem."""
+    return _columns(tk, "lineitem", *cols)
+
+
+def _position_of(keys):
+    """-> (keys -> row) as a lookup table over the key range, -1 where no
+    row has the key (TPC-H keys are dense and non-negative)."""
+    pos = np.full(int(keys.max()) + 2, -1, dtype=np.int64)
+    pos[keys] = np.arange(len(keys))
+    return pos
+
+
+def _lookup(pos, keys):
+    """Rows of `keys` through a _position_of table (-1: no such row)."""
+    ok = (keys >= 0) & (keys < len(pos))
+    return np.where(ok, pos[np.clip(keys, 0, len(pos) - 1)], -1)
 
 
 def _fmt_scaled(v: int, scale: int) -> str:
@@ -372,6 +391,83 @@ def q1_oracle(tk) -> list:
                      _fmt_scaled(_avg_scaled(sd, cnt), 6), str(cnt)))
     # ORDER BY l_returnflag, l_linestatus (string order)
     return sorted(rows, key=lambda r: (r[0], r[1]))
+
+
+def _int_bincount(group, vals, ngroups):
+    """Exact int64 sums of `vals` per group code."""
+    out = np.zeros(ngroups, dtype=np.int64)
+    np.add.at(out, group, vals.astype(np.int64))
+    return out
+
+
+def q3_oracle(tk) -> list:
+    """Q3's rows as strings (TestKit's normal form): BUILDING customers'
+    orders before 1995-03-15, their lines shipped after it, revenue per
+    order, the 10 largest (ties by order date)."""
+    (ckey, _), (seg, segd) = _columns(tk, "customer", "c_custkey",
+                                      "c_mktsegment")
+    (okey, _), (ocust, _), (odate, _), (oprio, _) = _columns(
+        tk, "orders", "o_orderkey", "o_custkey", "o_orderdate",
+        "o_shippriority")
+    (lok, _), (ship, _), (price, _), (disc, _) = _lineitem(
+        tk, "l_orderkey", "l_shipdate", "l_extendedprice", "l_discount")
+    day = parse_date("1995-03-15")
+    crow = _lookup(_position_of(ckey), ocust)
+    o_ok = (crow >= 0) & (odate < day)
+    o_ok[o_ok] = seg[crow[o_ok]] == segd.index("BUILDING")
+    orow = _lookup(_position_of(okey), lok)
+    m = (orow >= 0) & (ship > day)
+    m[m] = o_ok[orow[m]]
+    rev = _int_bincount(orow[m], price[m] * (100 - disc[m]), len(okey))
+    hit = np.zeros(len(okey), dtype=bool)
+    hit[orow[m]] = True
+    rows = np.nonzero(hit)[0]
+    # ORDER BY revenue DESC, o_orderdate LIMIT 10
+    order = np.lexsort((odate[rows], -rev[rows]))[:10]
+    return [(str(int(okey[r])), _fmt_scaled(int(rev[r]), 4),
+             days_to_str(int(odate[r])), str(int(oprio[r])))
+            for r in rows[order]]
+
+
+def q5_oracle(tk) -> list:
+    """Q5's rows as strings: 1994 orders of ASIA customers, the lines
+    supplied from the customer's own nation, revenue per nation."""
+    (rkey, _), (rname, rnd) = _columns(tk, "region", "r_regionkey",
+                                       "r_name")
+    (nkey, _), (nname, nnd), (nreg, _) = _columns(
+        tk, "nation", "n_nationkey", "n_name", "n_regionkey")
+    (ckey, _), (cnat, _) = _columns(tk, "customer", "c_custkey",
+                                    "c_nationkey")
+    (skey, _), (snat, _) = _columns(tk, "supplier", "s_suppkey",
+                                    "s_nationkey")
+    (okey, _), (ocust, _), (odate, _) = _columns(
+        tk, "orders", "o_orderkey", "o_custkey", "o_orderdate")
+    (lok, _), (lsupp, _), (price, _), (disc, _) = _lineitem(
+        tk, "l_orderkey", "l_suppkey", "l_extendedprice", "l_discount")
+    asia = rkey[rname == rnd.index("ASIA")]
+    nat_ok = np.isin(nreg, asia)
+    orow = _lookup(_position_of(okey), lok)
+    srow = _lookup(_position_of(skey), lsupp)
+    m = (orow >= 0) & (srow >= 0)
+    m[m] = (odate[orow[m]] >= parse_date("1994-01-01")) & \
+        (odate[orow[m]] < parse_date("1995-01-01"))
+    crow = np.full(len(lok), -1, dtype=np.int64)
+    crow[m] = _lookup(_position_of(ckey), ocust[orow[m]])
+    m &= crow >= 0
+    # the customer's nation is the supplier's, and lies in ASIA
+    m[m] = cnat[crow[m]] == snat[srow[m]]
+    nrow = np.full(len(lok), -1, dtype=np.int64)
+    nrow[m] = _lookup(_position_of(nkey), cnat[crow[m]])
+    m &= nrow >= 0
+    m[m] = nat_ok[nrow[m]]
+    rev = _int_bincount(nrow[m], price[m] * (100 - disc[m]), len(nkey))
+    hit = np.zeros(len(nkey), dtype=bool)
+    hit[nrow[m]] = True
+    rows = np.nonzero(hit)[0]
+    # ORDER BY revenue DESC
+    order = np.argsort(-rev[rows], kind="stable")
+    return [(nnd[nname[r]], _fmt_scaled(int(rev[r]), 4))
+            for r in rows[order]]
 
 
 def qsum_oracle(tk) -> list:

@@ -47,6 +47,10 @@ TORCH_OPS = frozenset({
     "and", "or", "xor", "not", "isnull", "isnotnull",
     "year", "month", "day", "dayofmonth",
     "date_add", "date_sub", "adddate", "subdate",
+    # string and conditional ops: dict-coded strings evaluate as a host
+    # table over the dictionary gathered by code (like, substring, IN of
+    # strings), numbers as compares (IN), CASE as nested wheres
+    "in", "case_when", "like", "substring",
 })
 
 

@@ -863,14 +863,17 @@ def _merge_where(ctx, cond, a, b, expr):
     if asd is not None or bsd is not None or isinstance(ad, str) or \
             isinstance(bd, str):
         return _merge_where_strings(ctx, cond, a, b)
-    anm = materialize_nulls(ctx, an)
-    bnm = materialize_nulls(ctx, bn)
     if np.isscalar(ad):
         ad = ctx.full(ad)
     if np.isscalar(bd):
         bd = ctx.full(bd)
     data = xp.where(cond, ad, bd)
-    nulls = xp.where(cond, anm, bnm)
+    if (an is None or an is False) and (bn is None or bn is False):
+        # neither branch is ever NULL: no mask (CASE WHEN c THEN x ELSE 0
+        # stays a plain column, which the device's scan kernels take)
+        return data, None, None
+    nulls = xp.where(cond, materialize_nulls(ctx, an),
+                     materialize_nulls(ctx, bn))
     return data, nulls, None
 
 
@@ -962,6 +965,19 @@ def _sorted_membership(ctx, a, table_np):
     return stx[idx] == ai
 
 
+def _is_int_array(a) -> bool:
+    """Is `a` an integer array (numpy) or tensor (torch dtypes have no
+    .kind)? Bool is not."""
+    dt = getattr(a, "dtype", None)
+    if dt is None:
+        return False
+    kind = getattr(dt, "kind", None)
+    if kind is not None:
+        return kind in "iu"
+    return not (dt.is_floating_point or dt.is_complex) and \
+        str(dt) != "torch.bool"
+
+
 @op("in")
 def op_in(ctx, expr):
     """args[0] IN (args[1:]) — constants only on the list side here;
@@ -997,8 +1013,7 @@ def op_in(ctx, expr):
         # 418ms); sorted table + searchsorted is O(n log k)
         a2c = pairs[0][0]
         table = np.array([cv for _, cv in pairs])
-        if table.dtype.kind in "iu" and getattr(a2c, "dtype", None) is not None \
-                and a2c.dtype.kind in "iu":
+        if table.dtype.kind in "iu" and _is_int_array(a2c):
             r = _sorted_membership(ctx, a2c, table.astype(np.int64))
         else:
             r = xp.isin(a2c, xp.asarray(table))

@@ -19,7 +19,7 @@ class PlanContext:
                  check_read=None, temp_tables=None, make_temp_table=None,
                  drop_temp_table=None, seq_nextval=None, seq_lastval=None,
                  ts_for_time=None, table_bulk_rows=None, user=None,
-                 model_lookup=None):
+                 model_lookup=None, device_type="cpu"):
         self.infoschema = infoschema
         self.sess_vars = sess_vars
         self.current_db = current_db
@@ -37,6 +37,9 @@ class PlanContext:
         # domain ModelRegistry lookup (epoch-fenced): predict()/embed()
         # resolve their model handle through this at rewrite time
         self.model_lookup = model_lookup
+        # the domain's torch device type: plan-time routing gates
+        # (physical.to_physical) differ between the card and the CPU
+        self.device_type = device_type
         self.ts_for_time = ts_for_time
         self.stale_read_ts = 0       # set by AS OF TIMESTAMP table refs
         self.user_vars = user_vars or {}
@@ -99,7 +102,8 @@ def optimize(stmt, pctx: PlanContext):
             logical, hints=hints,
             no_reorder=getattr(stmt, "straight_join", False),
             cascades=cascades)
-        phys = to_physical(logical, pctx.sess_vars, hints=hints)
+        phys = to_physical(logical, pctx.sess_vars, hints=hints,
+                           device_type=pctx.device_type)
         try:
             mpp_on = bool(pctx.sess_vars.get("tidb_enable_mpp"))
         except Exception:
@@ -127,19 +131,21 @@ def optimize(stmt, pctx: PlanContext):
                          False)
             plan.select_plan = to_physical(
                 optimize_logical(plan.select_plan, no_reorder=nr),
-                pctx.sess_vars)
+                pctx.sess_vars, device_type=pctx.device_type)
         plan.read_tables = frozenset(pctx.read_tables)
         return plan
     if isinstance(stmt, ast.UpdateStmt):
         plan = builder.build_update(stmt)
         plan.select_plan = to_physical(optimize_logical(plan.select_plan),
-                                       pctx.sess_vars)
+                                       pctx.sess_vars,
+                                       device_type=pctx.device_type)
         plan.read_tables = frozenset(pctx.read_tables)
         return plan
     if isinstance(stmt, ast.DeleteStmt):
         plan = builder.build_delete(stmt)
         plan.select_plan = to_physical(optimize_logical(plan.select_plan),
-                                       pctx.sess_vars)
+                                       pctx.sess_vars,
+                                       device_type=pctx.device_type)
         plan.read_tables = frozenset(pctx.read_tables)
         return plan
     return stmt   # DDL / utility statements execute from the AST directly

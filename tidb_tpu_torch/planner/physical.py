@@ -700,12 +700,19 @@ import threading as _threading
 _TLS = _threading.local()
 
 
-def to_physical(plan: LogicalPlan, sess_vars=None, hints=None) -> PhysPlan:
+def to_physical(plan: LogicalPlan, sess_vars=None, hints=None,
+                device_type="cpu") -> PhysPlan:
+    """device_type is the domain's torch device type ("cuda" or "cpu"):
+    the heavy-dimension gate of _try_fuse_agg keeps such joins fused on
+    the card and plans the host alternative on the CPU, as the
+    reference does on its accelerator and CPU backends."""
     _TLS.hints = list(hints or ())
+    _TLS.device_type = device_type
     try:
         p = _phys(plan)
     finally:
         _TLS.hints = []
+        _TLS.device_type = "cpu"
     return p
 
 
@@ -1795,11 +1802,18 @@ def _orient_pipeline(plan, child, leaves, eqs, filters, owner, fact,
         sum(agg_mass(l) for l, _jt, _ec, _n in outer_dims)
     if dim_rows > _FUSE_MAX_DIM_MASS_ABS and \
             dim_rows > _FUSE_MAX_DIM_MASS_RATIO * est_fact:
-        # the reference keeps such pipelines fused on an accelerator;
-        # fused dimension joins are not yet ported, so the host
-        # alternative (the reference's CPU-backend plan) serves every
-        # device here
-        return None
+        # the host-semi-join alternative only wins on the CPU device:
+        # on the card the conventional subtree runs every operator on
+        # the host against the device-resident store, while the
+        # aggregate dims materialize through device fragments. The
+        # card keeps an ABSOLUTE ceiling as the device-memory escape
+        # hatch: dims beyond it cannot all be resident. Only
+        # aggregate-subquery dims count here, and copr/pipeline.py does
+        # not port those (materialized dims) yet: until it does, such a
+        # node declines at run time and runs its conventional subtree.
+        if getattr(_TLS, "device_type", "cpu") != "cuda" or \
+                dim_rows > _FUSE_DEV_DIM_MASS_ABS:
+            return None
     fused = PhysFusedPipeline(fact.dag, dims, post,
                               list(group_items),
                               [_to_partial(a) for a in aggs],

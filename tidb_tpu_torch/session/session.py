@@ -477,6 +477,7 @@ class Session:
             table_bulk_rows=self._table_bulk_rows,
             user=f"{self.user}@{self.host}",
             model_lookup=lambda _name: None,   # ML not yet ported
+            device_type=self.domain.device.type,
         )
 
     def _table_bulk_rows(self, table_id: int) -> int:

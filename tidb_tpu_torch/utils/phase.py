@@ -101,11 +101,12 @@ def snap():
     return out
 
 
-def timed_kernel(kind, fn):
+def timed_kernel(kind, fn, first=True):
     """Wrap a fragment callable with dispatch accounting. Its first call
     is recorded separately (on the card it may pay the lazy nvcc build
-    of the scan kernels)."""
-    state = {"first": True}
+    of the scan kernels), unless `first` is False: a callable built anew
+    for each call, which no cache holds, counts every call a dispatch."""
+    state = {"first": first}
 
     def wrapped(*args, **kw):
         t0 = time.perf_counter()
