@@ -3,15 +3,22 @@ hand-written kernels, holds each against its plain PyTorch version,
 times them, then runs TPC-H Q6, Q1 and a global aggregate without range
 filters at SF1 from SQL to rows through the package's normal entry point
 (TestKit on the card), then the join queries whose fused fragments probe
-dimension tables on the card (Q3, Q4, Q5, Q10, Q12, Q14, Q19, Q22), and
-Q6, Q1, the global aggregate, Q3 and Q5 again through the package's
-MySQL wire server, with a raw-socket client. Every statement's rows are
-held to the reference package's committed SF1 rows (or a numpy oracle),
-and its route to the counters of the fused path. Each kernel is held to
-its plain version on inputs built from the loaded tables and on edge
-cases, and, in one more warm statement of every TestKit query, on the
-very tensors each fragment hands its wrapper. Each kernel's launches
-are counted per path, and so are the product pairs Q6 folds into
+dimension tables on the card (Q3, Q4, Q5, Q10, Q12, Q14, Q19, Q22, and
+the sort-kind group-bys Q2, Q7, Q8, Q9, Q11, Q15, Q16, Q18, Q20 and Q20
+without its nation predicate; Q3 and Q10 aggregate as runs on the card),
+the queries with a fused node the port does not fuse yet (Q13, Q17,
+Q21), and Q6, Q1, the global aggregate, Q3 and Q5 again through the
+package's MySQL wire server, with a raw-socket client. Every statement's
+rows are held to the reference package's committed SF1 rows (or a numpy
+oracle), and its route to the counters of the fused path: fragments,
+host scans, declines, one dispatch and one sync per partition of a warm
+statement, no upload. Every fragment enqueue of the SQL and join phases
+runs under torch.cuda.set_sync_debug_mode("error"), so a blocking wait
+on the card inside a fragment fails the run. Each kernel is held to its
+plain version on inputs built from the loaded tables and on edge cases,
+and, in one more warm statement of every TestKit query, on the very
+tensors each fragment hands its wrapper. Each kernel's launches are
+counted per path, and so are the product pairs Q6 folds into
 range_filter_sums (one per partition and statement).
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one
@@ -405,13 +412,13 @@ def cmp(name, got, want):
 def checked_kernels(run):
     """Runs `run()` with each kernel wrapper of scan_kernels replaced by
     one that calls the wrapper (whose launch counts as the path's own),
-    then the plain version on the same device tensors, and cmp()s the
-    two: the kernels held to their plain versions at the shapes and on
-    the data the fragments really give them. The plain versions launch
+    then the plain version on the same device tensors; once `run()` has
+    returned, cmp()s the two of every call (not inside the fragment,
+    where the sync guard allows no host read). The plain versions launch
     no kernel and count nothing. -> (run's result, [(name, shape)] of
     the calls, shape as "n=.. k=.. nslots=..")."""
     from tidb_tpu_torch.ops import scan_kernels as sk
-    calls = []
+    calls, pairs = [], []
     saved = {fn.__name__: getattr(sk, fn.__name__) for fn in sk.KERNELS}
 
     def checking(name, wrapper):
@@ -419,7 +426,7 @@ def checked_kernels(run):
 
         def call(*args, **kw):
             got = wrapper(*args, **kw)
-            cmp(name, got, plain(*args, **kw))
+            pairs.append((name, got, plain(*args, **kw)))
             cols, rest = list(args[0]), args[1:]
             n = rest[0].numel() if name == "dense_group_sums" else \
                 rest[-1].numel() if name == "masked_sums" else \
@@ -433,10 +440,65 @@ def checked_kernels(run):
     for name, wrapper in saved.items():
         setattr(sk, name, checking(name, wrapper))
     try:
-        return run(), calls
+        out = run()
     finally:
         for name, wrapper in saved.items():
             setattr(sk, name, wrapper)
+    for name, got, want in pairs:
+        cmp(name, got, want)
+    return out, calls
+
+
+class SyncGuard:
+    """Runs every fragment enqueue (copr/pipeline.py run_fragment: the
+    fragment's own call, not its uploads nor its fetch) under
+    torch.cuda.set_sync_debug_mode("error"): a blocking wait on the card
+    inside a fragment raises, and its statement fails. `calls` counts
+    the enqueues it guarded. check() first shows the mode is live: a
+    tensor's .item() and a device tensor made from a Python scalar must
+    raise under it."""
+
+    def __init__(self):
+        self.calls = 0
+        self._orig = None
+
+    @staticmethod
+    def check():
+        import torch
+        x = torch.ones(1, device="cuda")
+        for what, fn in (("Tensor.item()", lambda: x.item()),
+                         ("torch.tensor(1, device='cuda')",
+                          lambda: torch.tensor(1, device="cuda"))):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn()
+            except RuntimeError:
+                continue
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            fail(f"sync debug mode 'error' did not catch {what}")
+        log("sync guard: set_sync_debug_mode('error') raises on "
+            "Tensor.item() and on torch.tensor(<scalar>, device='cuda')")
+
+    def __enter__(self):
+        import torch
+        from tidb_tpu_torch.copr import pipeline
+        self._orig = orig = pipeline.run_fragment
+
+        def guarded(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = orig(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            self.calls += 1
+            return out
+        pipeline.run_fragment = guarded
+        return self
+
+    def __exit__(self, *exc):
+        from tidb_tpu_torch.copr import pipeline
+        pipeline.run_fragment = self._orig
 
 
 def phase_kernels(parts):
@@ -553,21 +615,49 @@ SQL_CASES = (("q6", "range_filter_sums", ("masked_sums",), 1),
 # fused device path adds 1 to the first and 0 to the others
 ROUTE_COUNTERS = ("fused_pipeline_hit", "copr_host_exec",
                   "fused_pipeline_fallback", "fused_pipeline_error")
+# the sort kind's learning reruns (cold statements only)
+RETRY_COUNTERS = ("fused_bucket_regrow", "fused_runs_degrade",
+                  "fused_compact_regrow")
+KERNELS = ("masked_sums", "dense_group_sums", "range_filter_sums")
 
-
-# the join queries: (query, fact table, kernel each partition's fragment
-# launches once, or None for the torch scatter of a posdense domain over
-# 64 slots). Each statement runs one fused fragment; Q22's first run
-# also runs its scalar subquery, a zero-dim global aggregate through
-# range_filter_sums (the cached plan holds its value afterwards).
-JOIN_CASES = (("q3", "lineitem", None),
-              ("q4", "orders", "dense_group_sums"),
-              ("q5", "lineitem", "dense_group_sums"),
-              ("q10", "lineitem", None),
-              ("q12", "lineitem", "dense_group_sums"),
-              ("q14", "lineitem", "masked_sums"),
-              ("q19", "lineitem", "masked_sums"),
-              ("q22", "customer", "dense_group_sums"))
+# the join queries: (query, the fused fragments of a warm statement, the
+# fragments only its first statement adds (a subquery whose value or
+# rows the cached plan keeps), the host reader-DAG scans of a first and
+# of a later statement). A fragment is (fact table, the kernel it
+# launches once per partition of that table, or None: a sort-kind
+# aggregation, plain PyTorch: Q3 and Q10's join positions over 64 slots
+# take the runs lowering on the card). No fused node of these declines.
+# The reader-DAG scans are those outside a fused node, run on the host
+# (ROADMAP A.4) as the reference runs them on its CPU.
+JOIN_CASES = (
+    ("q3", (("lineitem", None),), (), (0, 0)),
+    ("q4", (("orders", "dense_group_sums"),), (), (0, 0)),
+    ("q5", (("lineitem", "dense_group_sums"),), (), (0, 0)),
+    ("q10", (("lineitem", None),), (), (0, 0)),
+    ("q12", (("lineitem", "dense_group_sums"),), (), (0, 0)),
+    ("q14", (("lineitem", "masked_sums"),), (), (0, 0)),
+    ("q19", (("lineitem", "masked_sums"),), (), (0, 0)),
+    ("q22", (("customer", "dense_group_sums"),),
+     (("customer", "range_filter_sums"),), (0, 0)),
+    ("q2", (("partsupp", None),), (), (5, 5)),
+    ("q7", (("lineitem", None),), (), (0, 0)),
+    ("q8", (("lineitem", None),), (), (0, 0)),
+    ("q9", (("lineitem", None),), (), (0, 0)),
+    ("q11", (("partsupp", None),), (("partsupp", "masked_sums"),), (0, 0)),
+    ("q15", (("lineitem", None),), (("lineitem", None),), (1, 1)),
+    ("q16", (("partsupp", None),), (), (1, 0)),
+    ("q18", (("lineitem", None),), (("lineitem", None),), (0, 0)),
+    ("q20", (), (("lineitem", None),), (3, 1)),
+    # Q20 returns no row at SF1; without its nation predicate it does,
+    # through the IN-subquery result Q20's first statement computed
+    ("q20_all_nations", (), (), (1, 1)),
+)
+# queries with a fused node the port does not fuse yet (materialized
+# dims, ROADMAP A.3): (query, fused fragments of every statement, fused
+# nodes that decline, host reader-DAG scans), run cold and warm
+DECLINED_CASES = (("q13", (), 1, 2),
+                  ("q17", (("lineitem", None),), 1, 2),
+                  ("q21", (("lineitem", None), ("lineitem", None)), 1, 4))
 
 
 def table_rows(tk, table):
@@ -582,22 +672,37 @@ def partitions_of(tk, table):
 
 
 def route_of(tk, q, nparts, first=False):
-    """-> (launches, absent kernels, folded pairs, fused fragments) that
-    query q's statement must show, on its first run or a later one;
-    nparts is lineitem's partitions."""
-    kernels = ("masked_sums", "dense_group_sums", "range_filter_sums")
+    """-> the route query q's statement must show, on its first run or a
+    later one: {"launches": {kernel: n}, "absent": kernels not launched,
+    "pairs": product pairs folded, "fragments": fused fragments,
+    "dispatches": fragment calls of a warm statement (a first one may
+    rerun a partition while it learns), "host": reader-DAG scans on the
+    host, "declined": fused nodes that decline}; nparts is lineitem's
+    partitions."""
     case = next((c for c in SQL_CASES if c[0] == q), None)
     if case is not None:
         _q, kname, absent, pairs = case
-        return {kname: nparts}, absent, pairs * nparts, 1
-    _q, fact, kname = next(c for c in JOIN_CASES if c[0] == q)
-    launches = {} if kname is None else {kname: partitions_of(tk, fact)}
-    frags = 1
-    if q == "q22" and first:
-        launches["range_filter_sums"] = 1        # its scalar subquery
-        frags = 2
-    return launches, tuple(k for k in kernels if k not in launches), 0, \
-        frags
+        return {"launches": {kname: nparts}, "absent": absent,
+                "pairs": pairs * nparts, "fragments": 1,
+                "dispatches": nparts, "host": 0, "declined": 0}
+    case = next((c for c in JOIN_CASES if c[0] == q), None)
+    if case is not None:
+        _q, frags, cold, host = case
+        frags = frags + (cold if first else ())
+        host, declined = host[0 if first else 1], 0
+    else:
+        _q, frags, declined, host = next(c for c in DECLINED_CASES
+                                         if c[0] == q)
+    launches = {}
+    for fact, kname in frags:
+        if kname is not None:
+            launches[kname] = launches.get(kname, 0) + \
+                partitions_of(tk, fact)
+    return {"launches": launches,
+            "absent": tuple(k for k in KERNELS if k not in launches),
+            "pairs": 0, "fragments": len(frags),
+            "dispatches": sum(partitions_of(tk, f) for f, _ in frags),
+            "host": host, "declined": declined}
 
 
 def sql_and_rows(tk, exp, q):
@@ -608,7 +713,8 @@ def sql_and_rows(tk, exp, q):
     oracle = {"q6": tpch.q6_oracle, "q1": tpch.q1_oracle,
               "q3": tpch.q3_oracle, "q5": tpch.q5_oracle,
               "qsum": tpch.qsum_oracle}.get(q)
-    sql = tpch.QSUM if q == "qsum" else tpch.ALL_QUERIES[q]
+    sql = {"qsum": tpch.QSUM, "q20_all_nations": tpch.Q20_ALL_NATIONS}.get(
+        q) or tpch.ALL_QUERIES[q]
     if q not in exp:
         return sql, oracle(tk)
     want = [tuple(r) for r in exp[q]]
@@ -617,42 +723,96 @@ def sql_and_rows(tk, exp, q):
     return sql, want
 
 
-def check_route(q, run, dom, m0, c0, launches, absent=(), pairs=0,
-                fragments=1):
-    """The statement ran `fragments` fused device fragments and nothing on
-    the host path; each kernel in `launches` launched that many times
-    and the kernels named in `absent` not at all (counts from the
-    snapshot c0 of scan_kernels.COUNTS), and it folded `pairs` product
-    pairs into range_filter_sums."""
+def check_route(q, run, dom, m0, c0, route):
+    """The statement ran route["fragments"] fused device fragments and
+    route["declined"] declined fused nodes, with route["host"] reader
+    DAGs on the host and no fused fragment failing; each kernel in
+    route["launches"] launched that many times and those in
+    route["absent"] not at all (counts from the snapshot c0 of
+    scan_kernels.COUNTS), and it folded route["pairs"] product pairs
+    into range_filter_sums."""
     from tidb_tpu_torch.ops import scan_kernels as sk
     folded = sk.COUNTS["product_pairs"] - c0["product_pairs"]
-    if folded != pairs:
-        fail(f"{q} {run}: folded {folded} product pairs, expected {pairs}")
+    if folded != route["pairs"]:
+        fail(f"{q} {run}: folded {folded} product pairs, expected "
+             f"{route['pairs']}")
     d = {c: dom.metrics.get(c, 0) - m0[c] for c in ROUTE_COUNTERS}
-    if d["fused_pipeline_hit"] != fragments:
-        fail(f"{q} {run}: ran {d['fused_pipeline_hit']} fused device "
-             f"fragments, expected {fragments} ({dom.last_fused_reason})")
-    for c in ROUTE_COUNTERS[1:]:
-        if d[c]:
-            fail(f"{q} {run}: {c} = {d[c]}")
-    for name, n in launches.items():
+    want = {"fused_pipeline_hit": route["fragments"],
+            "copr_host_exec": route["host"],
+            "fused_pipeline_fallback": route["declined"],
+            "fused_pipeline_error": 0}
+    if d != want:
+        fail(f"{q} {run}: routing counters {d}, expected {want} "
+             f"({dom.last_fused_reason})")
+    for name, n in route["launches"].items():
         if sk.COUNTS[name] - c0[name] != n:
             fail(f"{q} {run}: {name} launched {sk.COUNTS[name] - c0[name]}"
                  f" times, expected {n}")
-    for name in absent:
+    for name in route["absent"]:
         if sk.COUNTS[name] != c0[name]:
             fail(f"{q} {run}: {name} launched {sk.COUNTS[name] - c0[name]}"
                  " times")
 
 
-def check_phase(q, i, snap):
-    """A statement's phase counters: nothing ran on the host path, and a
-    warm run (i > 0) uploaded nothing (dims included)."""
-    for c in ("device_fallbacks", "fused_fallbacks", "host_execs"):
+def check_phase(q, i, snap, route, guarded, cuda=True):
+    """A statement's phase counters: no fused fragment fell back, the
+    host ran only the route's reader DAGs, every fragment enqueue ran
+    under the sync guard (`guarded` of them), and a warm run (i > 0)
+    uploaded nothing (dims included) and made one dispatch and one sync
+    per fact partition of its fragments (a sync is a wait on the card:
+    `cuda` False, a CPU rehearsal, has none); a first run may rerun a
+    partition while it learns, never fewer."""
+    for c in ("device_fallbacks", "fused_fallbacks"):
         if snap.get(c, 0):
             fail(f"{q} run {i}: {c} = {snap[c]}")
+    if snap.get("host_execs", 0) != route["host"]:
+        fail(f"{q} run {i}: {snap.get('host_execs', 0)} host executions, "
+             f"expected {route['host']}")
+    disp, syncs = snap.get("dispatches", 0), snap.get("syncs", 0)
+    if guarded != disp:
+        fail(f"{q} run {i}: {disp} fragment dispatches, {guarded} under "
+             "the sync guard")
     if i > 0 and snap.get("upload_bytes", 0):
         fail(f"{q} warm run {i}: uploaded {snap['upload_bytes']} bytes")
+    if syncs != (disp if cuda else 0) or \
+            (disp != route["dispatches"] if i > 0 else
+             disp < route["dispatches"]):
+        fail(f"{q} run {i}: {disp} dispatches and {syncs} syncs, expected "
+             f"{route['dispatches']} of each")
+
+
+def fact_of(q):
+    """The fact table a query's fused fragments scan (the first one's)."""
+    case = next((c for c in JOIN_CASES if c[0] == q), None)
+    frags = () if case is None else case[1] + case[2]
+    return frags[0][0] if frags else "lineitem"
+
+
+# ngroups of each partition of the last fused fragment (record_ngroups)
+NGROUPS = []
+
+
+def record_ngroups():
+    """Wraps copr/pipeline.py's _fused_partials_inner so NGROUPS holds
+    the group count of every partition of the last fused fragment it
+    returned."""
+    from tidb_tpu_torch.copr import pipeline
+    inner = pipeline._fused_partials_inner
+
+    def recorded(*args, **kw):
+        out = inner(*args, **kw)
+        if out is not None:
+            NGROUPS[:] = [p.ngroups for p in out]
+        return out
+    pipeline._fused_partials_inner = recorded
+
+
+def sort_kind_state(dom):
+    """The sort kind's learned state in the copr's host cache: group
+    buckets, lowering pins, compact capacities."""
+    return {k: v for k, v in dom.copr._host_cache.items()
+            if isinstance(k, tuple) and k and
+            k[0] in ("gb", "aggimpl", "fcompact")}
 
 
 def phase_line(snap):
@@ -661,27 +821,33 @@ def phase_line(snap):
         "fetch_bytes"))
 
 
-def phase_sql(tk, exp, nparts, queries):
+def phase_sql(tk, exp, nparts, queries, guard):
     """`queries` through SQL on the card: cold once, warm WARM_RUNS
     times, then once more with every kernel call the fragments make held
-    to its plain version on the same tensors (checked_kernels); rows ==
-    the committed reference rows or the numpy oracle (sql_and_rows), the
-    route of route_of, no host path, warm statements upload nothing
-    (dims included). -> {query: warm median ms}."""
+    to its plain version on the same tensors (checked_kernels), every
+    fragment enqueue under the sync guard; rows == the committed
+    reference rows or the numpy oracle (sql_and_rows), the route of
+    route_of, warm statements upload nothing (dims included) and make
+    one dispatch and one sync per partition. -> {query: warm median
+    ms}."""
     from collections import Counter
     from tidb_tpu_torch.ops import scan_kernels as sk
     from tidb_tpu_torch.utils import phase
     dom = tk.domain
+    cuda = dom.copr.device.type == "cuda"
     meds = {}
     for q in queries:
         sql, want = sql_and_rows(tk, exp, q)
-        fact = next((c[1] for c in JOIN_CASES if c[0] == q), "lineitem")
         warm, calls = [], []
+        learned0 = sort_kind_state(dom)
         for i in range(2 + WARM_RUNS):
             checked = i == 1 + WARM_RUNS
-            launches, absent, pairs, frags = route_of(tk, q, nparts, i == 0)
-            m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS}
+            route = route_of(tk, q, nparts, i == 0)
+            m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS +
+                  RETRY_COUNTERS}
             c0 = dict(sk.COUNTS)
+            g0 = guard.calls
+            phase.reset()
             t0 = time.perf_counter()
             if checked:
                 got, calls = checked_kernels(
@@ -692,28 +858,86 @@ def phase_sql(tk, exp, nparts, queries):
             snap = phase.snap()
             if got != want:
                 fail(f"{q} run {i}: rows {got} != expected {want}")
-            check_route(q, f"run {i}", dom, m0, c0, launches, absent,
-                        pairs, frags)
-            check_phase(q, i, snap)
+            check_route(q, f"run {i}", dom, m0, c0, route)
+            check_phase(q, i, snap, route, guard.calls - g0, cuda)
+            retries = {c: dom.metrics.get(c, 0) - m0[c]
+                       for c in RETRY_COUNTERS}
+            if i > 0 and any(retries.values()):
+                fail(f"{q} warm run {i}: learning reruns {retries}")
             if 0 < i and not checked:
                 warm.append(ms)
             kind = "cold" if i == 0 else "checked" if checked else "warm"
-            log(f"sql {q} {kind} {ms:.2f} ms {phase_line(snap)} launches=" + json.dumps(
-                    {k: sk.COUNTS[k] - c0[k] for k in launches}) +
+            log(f"sql {q} {kind} {ms:.2f} ms {phase_line(snap)} launches=" +
+                json.dumps({k: sk.COUNTS[k] - c0[k]
+                            for k in route["launches"]}) +
                 f" product_pairs="
-                f"{sk.COUNTS['product_pairs'] - c0['product_pairs']}")
-        for name, n in launches.items():
+                f"{sk.COUNTS['product_pairs'] - c0['product_pairs']}" +
+                ("".join(f" {c}={n}" for c, n in retries.items() if n)))
+        for name, n in route["launches"].items():
             if sum(c[0] == name for c in calls) != n:
                 fail(f"{q}: {n} {name} launches, "
                      f"{sum(c[0] == name for c in calls)} checked")
         log(f"sql {q}: kernel calls == plain versions on the same tensors: "
             + ("; ".join(f"{name} {shape} x{k}" for (name, shape), k in
                          sorted(Counter(calls).items())) or "none"))
+        learned = [[k[0], v] for k, v in sort_kind_state(dom).items()
+                   if learned0.get(k) != v]
+        if learned:
+            log(f"sql {q}: sort kind learned {json.dumps(learned)}; "
+                f"ngroups by partition of the last statement "
+                f"{NGROUPS}; fetch_bytes {snap.get('fetch_bytes', 0)}")
         meds[q] = statistics.median(warm)
+        fact = fact_of(q)
         log(f"sql {q}: rows == {'expected' if q in exp else 'numpy oracle'}"
             f" ({len(want)} rows); warm median {meds[q]:.3f} ms, "
             f"{table_rows(tk, fact) / meds[q] * 1e3:.4g} {fact} rows/s")
     return meds
+
+
+def phase_declined(tk, exp, nparts, queries, guard):
+    """Queries with a fused node the port does not fuse yet: cold once
+    and warm once, rows == the committed reference rows, the route of
+    route_of (their other fused nodes run fused, under the sync guard),
+    and the decline reasons printed."""
+    from tidb_tpu_torch.copr import pipeline
+    from tidb_tpu_torch.ops import scan_kernels as sk
+    from tidb_tpu_torch.utils import phase
+    dom = tk.domain
+    reasons, set_reason = [], pipeline._set_reason
+
+    def noted(copr, msg):
+        reasons.append(msg)
+        return set_reason(copr, msg)
+    pipeline._set_reason = noted
+    try:
+        for q in queries:
+            sql, want = sql_and_rows(tk, exp, q)
+            for i in range(2):
+                route = route_of(tk, q, nparts, i == 0)
+                m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS}
+                c0 = dict(sk.COUNTS)
+                g0 = guard.calls
+                reasons.clear()
+                phase.reset()
+                t0 = time.perf_counter()
+                got = tk.must_query(sql)._norm()
+                ms = (time.perf_counter() - t0) * 1e3
+                snap = phase.snap()
+                if got != want:
+                    fail(f"{q} run {i}: rows {got} != expected {want}")
+                check_route(q, f"run {i}", dom, m0, c0, route)
+                if len(reasons) != route["declined"] or not all(
+                        r.startswith("not yet ported: materialized")
+                        for r in reasons):
+                    fail(f"{q} run {i}: decline reasons {reasons}")
+                if snap.get("dispatches", 0) != guard.calls - g0:
+                    fail(f"{q} run {i}: fragment dispatches outside the "
+                         "sync guard")
+                log(f"declined {q} {'cold' if i == 0 else 'warm'} "
+                    f"{ms:.2f} ms {phase_line(snap)}; rows == expected "
+                    f"({len(want)} rows); declined: {reasons}")
+    finally:
+        pipeline._set_reason = set_reason
 
 
 class WireClient:
@@ -851,8 +1075,7 @@ def phase_wire(tk, exp, nparts, testkit_meds):
             for q, run in [("q6", i) for i in range(1 + WARM_RUNS)] + \
                     [("q1", 0), ("qsum", 0), ("q3", 0), ("q5", 0)]:
                 sql, want = sql_and_rows(tk, exp, q)
-                launches, absent_names, pairs, frags = route_of(tk, q,
-                                                                nparts)
+                route = route_of(tk, q, nparts)
                 m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS}
                 c0 = dict(sk.COUNTS)
                 t0 = time.perf_counter()
@@ -861,13 +1084,13 @@ def phase_wire(tk, exp, nparts, testkit_meds):
                 if got != want:
                     fail(f"wire {q} run {run}: rows {got} != expected "
                          f"{want}")
-                check_route(f"wire {q}", f"run {run}", dom, m0, c0,
-                            launches, absent_names, pairs, frags)
+                check_route(f"wire {q}", f"run {run}", dom, m0, c0, route)
                 if q == "q6" and run > 0:
                     warm.append(ms)
                 log(f"wire {q} {'first' if run == 0 else 'warm'} "
                     f"{ms:.2f} ms launches=" + json.dumps(
-                        {k: sk.COUNTS[k] - c0[k] for k in launches}))
+                        {k: sk.COUNTS[k] - c0[k]
+                         for k in route["launches"]}))
         finally:
             client.close()
     finally:
@@ -919,13 +1142,23 @@ def main():
         if folds and pairs_by_path[path] == 0:
             fail(f"no product pair was folded on the {path} path")
         return out
-    meds = counted("sql", lambda: phase_sql(
-        tk, exp, nparts, [c[0] for c in SQL_CASES]))
-    t0 = time.perf_counter()
-    join_meds = counted("joins", lambda: phase_sql(
-        tk, exp, nparts, [c[0] for c in JOIN_CASES]), folds=False)
+    SyncGuard.check()
+    record_ngroups()
+    with SyncGuard() as guard:
+        meds = counted("sql", lambda: phase_sql(
+            tk, exp, nparts, [c[0] for c in SQL_CASES], guard))
+        t0 = time.perf_counter()
+
+        def joins():
+            out = phase_sql(tk, exp, nparts, [c[0] for c in JOIN_CASES],
+                            guard)
+            phase_declined(tk, exp, nparts, [c[0] for c in DECLINED_CASES],
+                           guard)
+            return out
+        join_meds = counted("joins", joins, folds=False)
     log(f"join phase {time.perf_counter() - t0:.1f} s; warm medians ms: "
-        f"{json.dumps(join_meds)}")
+        f"{json.dumps(join_meds)}; {guard.calls} fragment enqueues ran "
+        "under set_sync_debug_mode('error')")
     counted("wire", lambda: phase_wire(tk, exp, nparts, meds))
     log(f"launches by path: {json.dumps(by_path)}; folded product pairs "
         f"by path: {json.dumps(pairs_by_path)}")

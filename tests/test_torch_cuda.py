@@ -1,7 +1,10 @@
 """tidb_tpu_torch on a CUDA card: the three scan kernels against their plain
-PyTorch versions (range_filter_sums with folded product pairs too), and
-the rule that a failed fused fragment fails its statement there. This file imports nothing of tidb_tpu or jax, so it
-also runs on a machine that has the card and no JAX:
+PyTorch versions (range_filter_sums with folded product pairs too), the
+rule that a failed fused fragment fails its statement there, and the
+sort and runs lowerings of the general group-by against the CPU, with
+no blocking wait inside a fragment. This file imports nothing of
+tidb_tpu or jax, so it also runs on a machine that has the card and no
+JAX:
     python -m pytest tests/test_torch_cuda.py -q
 Without a CUDA device every test skips (a CUDA kernel has no CPU mode)."""
 import os
@@ -150,3 +153,85 @@ def test_join_queries_on_card():
         assert tk.domain.last_fused_reason is None
         if q == "q5":
             assert sk.COUNTS["dense_group_sums"] == 1
+
+
+@pytest.mark.parametrize("impl", ["scatter", "sorted", "runs"])
+def test_sort_lowerings_match_cpu_on_card(impl):
+    """sort_agg_body under each lowering gives on the card what it gives
+    on the CPU (the same code over CPU tensors, tested there against the
+    reference): keys and int states exactly, float states within rtol
+    1e-9 (atomic float sums add in any order)."""
+    from tidb_tpu_torch.copr import dag_exec as de
+    from tidb_tpu_torch.expression import EvalCtx
+    from tidb_tpu_torch.expression.expr import Column
+    from tidb_tpu_torch.expression.torch_ns import TorchNS
+    from tidb_tpu_torch.types.field_type import (new_bigint_type,
+                                                 new_double_type)
+
+    class A:
+        def __init__(self, name, args):
+            self.name, self.args, self.distinct = name, args, False
+    rng = np.random.RandomState(11)
+    n = 1 << 16
+    mask = rng.rand(n) < 0.8
+    cols = {0: (rng.randint(0, 500, n), rng.rand(n) < 0.1),
+            1: (rng.randint(-100, 100, n), None),
+            2: (rng.randn(n), rng.rand(n) < 0.2)}
+    ci, cf = Column(1, new_bigint_type()), Column(2, new_double_type())
+    aggs = [A("count", []), A("sum", [ci]), A("avg", [cf]), A("min", [cf]),
+            A("max", [ci]), A("first_row", [ci]), A("count", [cf])]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ctx = EvalCtx(TorchNS(dev), n, {
+            k: (_t(d).to(dev), None if nl is None else _t(nl).to(dev), None)
+            for k, (d, nl) in cols.items()}, host=False)
+        r = de.sort_agg_body(ctx, _t(mask).to(dev),
+                             [Column(0, new_bigint_type())], aggs, n, n,
+                             impl=impl)
+        ng = int(r["ngroups"])
+        out[dev] = (ng, [k[:ng].cpu() for k in r["keys"] + r["key_nulls"]],
+                    [[s[:ng].cpu() for s in st] for st in r["states"]])
+    (nc, kc, sc), (ng, kg, sg) = out["cpu"], out["cuda"]
+    assert nc == ng
+    for a, b in zip(kc, kg):
+        assert torch.equal(a, b)
+    for sta, stb in zip(sc, sg):
+        for a, b in zip(sta, stb):
+            if a.dtype.is_floating_point:
+                torch.testing.assert_close(a, b, rtol=1e-9, atol=0)
+            else:
+                assert torch.equal(a, b)
+
+
+def test_sort_kind_queries_on_card_without_syncs():
+    """Q3 (its join positions over 64 slots: the runs lowering on the
+    card), Q9 and Q18 (the sort kind) through TestKit on the card equal
+    the CPU's rows, every fragment enqueue under
+    set_sync_debug_mode("error"); a warm statement makes one dispatch
+    and one sync per partition."""
+    from tidb_tpu_torch.bench import tpch
+    from tidb_tpu_torch.copr import pipeline
+    from tidb_tpu_torch.testkit import TestKit
+    from tidb_tpu_torch.utils import phase
+    gpu, cpu = TestKit(), TestKit(device="cpu")
+    for kit in (gpu, cpu):
+        tpch.load_tpch(kit, sf=0.01, seed=3)
+    run = pipeline.run_fragment
+
+    def guarded(*a):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    pipeline.run_fragment = guarded
+    try:
+        for q in ("q3", "q9", "q18"):
+            want = cpu.must_query(tpch.ALL_QUERIES[q])._norm()
+            for _ in range(2):
+                phase.reset()
+                assert gpu.must_query(tpch.ALL_QUERIES[q])._norm() == want
+            snap = phase.snap()
+            assert snap["dispatches"] == snap["syncs"] >= 1, (q, snap)
+    finally:
+        pipeline.run_fragment = run

@@ -233,38 +233,29 @@ def test_dim_insert_joins_new_rows(kits):
 
 
 def test_unported_layout_declines_before_fact_snapshot(kits, monkeypatch):
-    """A group domain with no ported layout after probes (an int fact
-    column: neither dict-coded nor a dim position) declines before the
-    fused path snapshots the fact table or uploads a dim; the host
-    subtree answers with the reference's rows."""
+    """A group domain that is neither dict-coded nor a dim position (an
+    int fact column), which the port once declined before the fact
+    snapshot, now fuses through the sort kind: "scatter" under the CPU's
+    policy, "runs" under the card's, each with the reference's rows and
+    one fused fragment."""
     from tidb_tpu_torch.copr import pipeline
-    from tidb_tpu_torch.storage.columnar import ColumnarTable
-    inside, snaps, uploads = [], [], []
-    inner, upload = pipeline._fused_partials_inner, pipeline._upload_dim
-    snapshot = ColumnarTable.snapshot
+    import tidb_tpu_torch.copr.dag_exec as pde
+    impls = []
+    body = pipeline.sort_agg_body
 
-    def spy_inner(*a, **k):
-        inside.append(1)
-        try:
-            return inner(*a, **k)
-        finally:
-            inside.pop()
-
-    def spy_snapshot(self, *a, **k):
-        if inside:
-            snaps.append(self.table_info.name.lower())
-        return snapshot(self, *a, **k)
-    monkeypatch.setattr(pipeline, "_fused_partials_inner", spy_inner)
-    monkeypatch.setattr(pipeline, "_upload_dim",
-                        lambda *a, **k: uploads.append(1) or upload(*a, **k))
-    monkeypatch.setattr(ColumnarTable, "snapshot", spy_snapshot)
-    rows, d = both(kits, "select fact.q, sum(dim_a.val) from fact, dim_a "
-                   "where fact.a_id = dim_a.id group by fact.q "
-                   "order by fact.q")
-    assert d == FELL_BACK and rows
-    assert kits[1].domain.last_fused_reason.startswith(
-        "not yet ported: fused sort, runs or one-hot aggregation")
-    assert "fact" not in snaps and not uploads
+    def spy(*a, **k):
+        impls.append(k.get("impl"))
+        return body(*a, **k)
+    monkeypatch.setattr(pipeline, "sort_agg_body", spy)
+    sql = ("select fact.q, sum(dim_a.val) from fact, dim_a "
+           "where fact.a_id = dim_a.id group by fact.q order by fact.q")
+    for policy, impl in ((None, "scatter"), ("runs", "runs")):
+        monkeypatch.setattr(pde, "_FORCE_SEGMENT_IMPL", policy)
+        impls.clear()
+        rows, d = both(kits, sql)
+        assert d == FUSED and len(rows) > 1
+        assert impls == [impl]
+        assert kits[1].domain.last_fused_reason is None
 
 
 def test_dirty_dim_write_falls_back(kits):
@@ -520,18 +511,22 @@ def test_tpch_join_queries_equal_reference(tpch_kits, kernel_calls, q):
 
 
 def test_posdense_over_limit_declines_by_name(tpch_kits, monkeypatch):
-    """Q3 at SF10 has more orders than _POS_DENSE_MAX slots: its group
-    domain is then neither dense nor a dimension position, and the port
-    declines (sort aggregation after probes is not ported) to the host
-    join, with the reference's rows. Simulated by lowering the limit."""
+    """Q3 at SF10 has more orders than _POS_DENSE_MAX slots, so its group
+    domain is neither dense nor a dimension position: once declined to
+    the host join, it now fuses through the sort kind, with the
+    reference's rows and the numpy oracle's. Simulated by lowering the
+    limit."""
     from tidb_tpu_torch.copr import pipeline
     ref, port = tpch_kits
     monkeypatch.setattr(pipeline, "_POS_DENSE_MAX", 1000)
+    calls = []
+    body = pipeline.sort_agg_body
+    monkeypatch.setattr(pipeline, "sort_agg_body",
+                        lambda *a, **k: calls.append(1) or body(*a, **k))
     pm = port.domain.metrics
     p0 = {c: pm.get(c, 0) for c in COUNTERS}
     got = port.must_query(port_tpch.Q3)._norm()
     d = {c: pm.get(c, 0) - p0[c] for c in COUNTERS}
-    assert d == FELL_BACK
-    assert port.domain.last_fused_reason.startswith(
-        "not yet ported: fused sort, runs or one-hot aggregation")
+    assert d == FUSED and calls
     assert got == ref.must_query(ref_tpch.Q3)._norm()
+    assert got == port_tpch.q3_oracle(port)

@@ -9,8 +9,9 @@ jax or tidb_tpu.
 
 Every entry point runs on the CUDA device unless the caller asks for
 the CPU (`new_store(device="cpu")`, `TestKit(device="cpu")`, `--cpu`).
-Surfaces not ported yet (vector search, in-SQL inference, the replica
-fabric, MPP, the wire server, BR) fail with a "not yet ported" error.
+The MySQL wire server (`--serve`) answers from the card. Surfaces not
+ported yet (vector search, in-SQL inference, the replica fabric, MPP,
+BR) fail with a "not yet ported" error.
 """
 
 __version__ = "0.1.0"

@@ -12,8 +12,8 @@ numpy oracle (bench/tpch.py), failing on a mismatch. For each query
   - the device's busy time over the same statements under
     torch.profiler (the union of the CUDA kernel and copy intervals),
     hence its idle share, the device time by kernel name and by op
-    class (gathers, scatters, searchsorted, the scan kernels,
-    copies, the rest), and the elementwise multiplication kernels per
+    class (gathers, scatters, searchsorted, sorts, cumsum/cummax scans,
+    the scan kernels, copies, the rest), and the elementwise multiplication kernels per
     statement (Q6 folds its product into range_filter_sums, so it has
     none);
   - one warm statement's phase counters: fragment dispatches, host
@@ -61,6 +61,9 @@ STAGES = [
     ("fetch_and_compact", "copr/dag_exec.py", "_compact_dense"),
     ("fetch_and_compact_posdense", "copr/pipeline.py",
      "_compact_pos_dense"),
+    # every kind's consume: the sort kind's group-count checks and
+    # slicing of its partials to ngroups, the dense decodes above
+    ("consume", "copr/pipeline.py", "_consume"),
     ("final_merge", "executor/executors.py", "_merge_partials"),
 ]
 
@@ -103,6 +106,8 @@ OP_CLASSES = [
                       "range_filter_sums")),
     ("copies", ("Memcpy", "Memset", "memcpy", "memset")),
     ("searchsorted", ("searchsorted",)),
+    ("sorts", ("RadixSort", "radixSort", "sort_", "Sort")),
+    ("scans", ("Scan", "scan")),
     ("scatter", ("indexFunc", "index_add", "scatter", "Scatter")),
     ("gathers", ("index_elementwise", "Index", "gather", "Gather")),
 ]

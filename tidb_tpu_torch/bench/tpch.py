@@ -753,6 +753,15 @@ where s_suppkey in (
 order by s_name
 """
 
+# Q20 without its nation predicate: Q20 itself returns no row at the
+# scale factors the tests and chip_smoke.py use (no CANADA supplier
+# passes), so this statement is the one whose rows show its subqueries
+# at work
+Q20_ALL_NATIONS = Q20.replace(
+    "and s_nationkey = n_nationkey and n_name = 'CANADA'",
+    "and s_nationkey = n_nationkey")
+assert Q20_ALL_NATIONS != Q20
+
 Q21 = """
 select s_name, count(*) as numwait
 from supplier, lineitem l1, orders, nation

@@ -19,6 +19,18 @@ _host_partial_agg). The dense lowering routes by shape:
                                index_add_ / scatter_reduce_, the
                                reference's CPU lowering)
 
+A group domain with no dense layout takes sort_agg_body, lowered as the
+policy _segment_impl says: "scatter" on the CPU (the oracle), "runs" on
+the card (contiguous-run partials, runs_agg_body: no sort), and
+"sorted" once a runs query shape has been pinned there for unclustered
+keys. On the card the fused pipeline also sends dense and posdense
+domains over _BCR_MAX slots to the runs lowering, as the reference does
+on its device. None of these lowerings reads the host: their segmented
+reductions are prefix-sum differences (int64 sums and counts, exact)
+and scatters into buffers indexed by segment ordinal (float sums,
+min/max, first_row), where every row outside a segment lands in one of
+_SPILL spread spill slots.
+
 The range route is the fused fragment's (copr/pipeline.py): its fact
 filters that copr/range_lowering.py turns into column bounds are tested
 inside the kernel, and a sum/avg of the product of two bare int or
@@ -30,8 +42,8 @@ runs the plain torch twin of the reference's masked reductions, and a
 slot domain the scatter.
 
 Not yet ported: the reader-DAG device fragments (the reference's
-filter / top-n / partition-aggregation kernels, sort/runs/one-hot
-lowerings and the MPP mesh path). Every reader DAG runs its host twin
+filter / top-n / partition-aggregation kernels, the one-hot lowering
+and the MPP mesh path). Every reader DAG runs its host twin
 and is counted as a host execution (copr_host_exec / host_execs).
 """
 from __future__ import annotations
@@ -605,14 +617,20 @@ def _dense_strides(dag, key_dicts, cols=None, n=0):
     return layout
 
 
+def _dense_nslots(sizes):
+    """Slots of a dense layout: the product of its per-key sizes."""
+    n = 1
+    for s, _off in sizes:
+        n *= s
+    return n
+
+
 def dense_agg_body(ctx, mask, group_items, aggs, sizes, cap):
     """Dense partial agg over an eval ctx + row mask: slot = mixed radix
     of the group codes (slot 0 per key = NULL), then per-slot states.
     Shared by the copr reader and the fused pipeline fragment."""
     dev = ctx.xp.device
-    nslots = 1
-    for s, _off in sizes:
-        nslots *= s
+    nslots = _dense_nslots(sizes)
     slot = torch.zeros(cap, dtype=INT64, device=dev)
     for g, (size, off) in zip(group_items, sizes):
         d, nl, _ = eval_expr(ctx, g)
@@ -661,10 +679,9 @@ def _dense_agg_states_scatter(ctx, mask, aggs, slot, nslots, cap):
             z = torch.zeros((), dtype=d.dtype, device=dev)
             states.append([seg_sum(torch.where(row_ok, d, z)), cnt])
         elif a.name in ("min", "max"):
-            sent = _minmax_sentinel(a.name, d.dtype, dev)
+            sent = _minmax_sentinel(a.name, d.dtype)
             s = seg_red(torch.where(row_ok, d, sent),
-                        "amin" if a.name == "min" else "amax",
-                        sent.item())
+                        "amin" if a.name == "min" else "amax", sent)
             states.append([s, cnt])
         elif a.name == "first_row":
             iota = torch.arange(cap, dtype=INT64, device=dev)
@@ -676,15 +693,15 @@ def _dense_agg_states_scatter(ctx, mask, aggs, slot, nslots, cap):
     return {"present": seg_sum(mask.to(INT64)), "states": states}
 
 
-def _minmax_sentinel(name, dtype, device):
-    """-> the identity a min/max agg's masked-out rows take (a tensor of
-    dtype), shared by every lowering so they cannot diverge."""
+def _minmax_sentinel(name, dtype):
+    """-> the identity a min/max agg's masked-out rows take, as a Python
+    scalar (torch.where, torch.full and scatter_reduce_ take it as a
+    kernel argument: building a device tensor from it would be a
+    blocking copy), shared by every lowering so they cannot diverge."""
     is_f = dtype.is_floating_point
     if name == "min":
-        v = np.inf if is_f else _I64_MAX
-    else:
-        v = -np.inf if is_f else -_I64_MAX
-    return torch.tensor(v, dtype=dtype, device=device)
+        return float("inf") if is_f else int(_I64_MAX)
+    return float("-inf") if is_f else -int(_I64_MAX)
 
 
 def _agg_eval_rows(ctx, a, mask, cap):
@@ -828,7 +845,7 @@ def _reduce_plain(ctx, mask, aggs, cap):
             z = torch.zeros((), dtype=d.dtype, device=dev)
             states.append([torch.where(ok, d, z).sum()[None], cnt])
         elif a.name in ("min", "max"):
-            sent = _minmax_sentinel(a.name, d.dtype, dev)
+            sent = _minmax_sentinel(a.name, d.dtype)
             red = torch.amin if a.name == "min" else torch.amax
             states.append([red(torch.where(ok, d, sent))[None], cnt])
         elif a.name == "first_row":
@@ -905,6 +922,270 @@ def _compact_dense(dag, res, sizes, key_dicts, state_dicts):
     return PartialAggResult(ngroups=ngroups, keys=keys, key_nulls=key_nulls,
                             states=states, key_dicts=key_dicts,
                             state_dicts=state_dicts)
+
+
+# ---- general group-by: sort / runs lowerings ------------------------
+
+_FORCE_SEGMENT_IMPL = None  # tests: "scatter" | "sorted" | "runs" | None
+
+# dense and posdense domains above this many slots leave the dense
+# lowering on the card (the scan kernels take at most this many slots:
+# scan_kernels.MAX_SLOTS) and take the sort kind, lowered as runs
+_BCR_MAX = 64
+
+# a runs lowering that yields more partials than this, and more than a
+# quarter of the partition's rows, meets a group key that storage order
+# does not cluster: its query shape is pinned to the sorted lowering
+_RUNS_DEGRADE_MIN = 65536
+
+# rows outside every segment (masked out, a NULL argument, a group past
+# the bucket) scatter into this many spread spill slots: one slot would
+# serialize their atomics
+_SPILL = 4096
+
+
+def _segment_impl(device):
+    """How a general group-by lowers on `device`: "runs" on the card
+    (contiguous equal-key runs become partial groups: cumsums and
+    searchsorted gathers, no sort), "scatter" on the CPU (a sort, then
+    scatters by group: the oracle the others are tested against), or
+    what _FORCE_SEGMENT_IMPL names. The reference makes the same split
+    by backend (its TPU runs, its CPU scatters)."""
+    impl = _FORCE_SEGMENT_IMPL
+    if impl:
+        if impl not in ("scatter", "sorted", "runs"):
+            raise ValueError(f"segment impl {impl!r}: expected one of "
+                             "scatter|sorted|runs")
+        return impl
+    return "runs" if torch.device(device).type == "cuda" else "scatter"
+
+
+def _seg_index(ordinal, ok, nseg):
+    """Scatter index of each row: its segment ordinal where `ok` and
+    below nseg, else one of _SPILL spill slots past nseg, spread by row."""
+    iota = torch.arange(ordinal.shape[0], dtype=INT64,
+                        device=ordinal.device)
+    return torch.where(ok & (ordinal < nseg), ordinal,
+                       nseg + (iota & (_SPILL - 1)))
+
+
+def _seg_sum(index, vals, nseg):
+    """Per-segment sums of `vals` at `index` (_seg_index) -> [nseg]."""
+    out = torch.zeros(nseg + _SPILL, dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, index, vals)[:nseg]
+
+
+def _seg_reduce(index, vals, nseg, how, init):
+    """Per-segment "amin"/"amax" of `vals` at `index` from `init`."""
+    out = torch.full((nseg + _SPILL,), init, dtype=vals.dtype,
+                     device=vals.device)
+    return out.scatter_reduce_(0, index, vals, how,
+                               include_self=True)[:nseg]
+
+
+def _span_diff(vals, starts, ends):
+    """sum(vals[starts[j]:ends[j] + 1]) for each j, as the difference of
+    two prefix sums: exact for int64 (wrapping adds cancel)."""
+    if vals.dtype == torch.bool:
+        vals = vals.to(INT64)
+    cs = torch.cumsum(vals, 0)
+    return cs[ends] - (cs - vals)[starts]
+
+
+def _group_keys(ctx, group_items, cap):
+    """-> (int64 keys with NULLs as 0, NULL masks, has-a-null-mask flags)
+    of the group items over the eval ctx."""
+    keys, key_nulls, nullable = [], [], []
+    for g in group_items:
+        d, nl, _sd = eval_expr(ctx, g)
+        if np.isscalar(d) or getattr(d, "ndim", 1) == 0:
+            d = ctx.xp.full(cap, d)
+        nm = materialize_nulls(ctx, nl)
+        keys.append(torch.where(nm, 0, d.to(INT64)))
+        key_nulls.append(nm)
+        nullable.append(nl is not None and nl is not False)
+    return keys, key_nulls, nullable
+
+
+def _no_groups(ctx, mask, aggs, cap):
+    """A group-by without group items: one group, masked reductions."""
+    r = _dense_agg_states_reduce(ctx, mask, aggs, cap)
+    return {"ngroups": torch.ones((), dtype=INT64, device=mask.device),
+            "keys": [], "key_nulls": [], "states": r["states"]}
+
+
+def _runs_agg_core(keys, key_nulls, mask, ctx, aggs, cap, bucket):
+    """Contiguous-run partial aggregation (reference _runs_agg_core):
+    every maximal run of equal group keys becomes one partial group,
+    found with cumsums, cummax and left-sided searchsorted gathers; no
+    sort, no host read. Runs wholly masked out are dropped, so ngroups
+    counts the runs with a visible row; the first `bucket` of them come
+    back in storage order. int64 sums and counts are prefix-sum
+    differences (exact); float sums and min/max scatter by run ordinal.
+    Unclustered keys stay correct (one key may yield several partials,
+    which the host merge combines) but approach one run per row."""
+    dev = mask.device
+    idx = torch.arange(cap, dtype=INT64, device=dev)
+    neq = torch.zeros(cap - 1, dtype=torch.bool, device=dev)
+    for k, kn in zip(keys, key_nulls):
+        neq = neq | (k[1:] != k[:-1]) | (kn[1:] != kn[:-1])
+    change = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), neq])
+    cs_change = torch.cumsum(change.to(INT64), 0)          # run ordinal
+    run_start = torch.cummax(torch.where(change, idx, -1), 0).values
+    mi = mask.to(INT64)
+    mask_cs = torch.cumsum(mi, 0)
+    vstart = mask & (mask_cs == (mask_cs - mi)[run_start] + 1)
+    vcs = torch.cumsum(vstart.to(INT64), 0)
+    ngroups = vcs[cap - 1]
+    want = torch.arange(1, bucket + 1, dtype=INT64, device=dev)
+    posc = torch.clamp(torch.searchsorted(vcs, want), max=cap - 1)
+    rs = run_start[posc]                                   # run start
+    rid = cs_change[posc]
+    re = torch.clamp(torch.searchsorted(cs_change, rid + 1), max=cap) - 1
+    ordinal = cs_change - 1
+    states = []
+    for a in aggs:
+        d, ok = _agg_eval_rows(ctx, a, mask, cap)
+        oki = ok.to(INT64)
+        cnt = _span_diff(oki, rs, re)
+        if a.name == "count":
+            states.append([cnt])
+        elif a.name in ("sum", "avg"):
+            v0 = torch.where(ok, d, torch.zeros((), dtype=d.dtype,
+                                                device=dev))
+            if d.dtype.is_floating_point:
+                s = _seg_sum(_seg_index(ordinal, ok, cap), v0, cap)[rid - 1]
+                s = torch.where(cnt > 0, s, 0.0)
+            else:
+                s = _span_diff(v0, rs, re)
+            states.append([s, cnt])
+        elif a.name in ("min", "max"):
+            sent = _minmax_sentinel(a.name, d.dtype)
+            s = _seg_reduce(_seg_index(ordinal, ok, cap), d, cap,
+                            "amin" if a.name == "min" else "amax",
+                            sent)[rid - 1]
+            states.append([torch.where(cnt > 0, s, sent), cnt])
+        elif a.name == "first_row":
+            ok_cs = torch.cumsum(oki, 0)
+            ford = (ok_cs - oki)[rs] + 1
+            fpos = torch.clamp(torch.searchsorted(ok_cs, ford), max=cap - 1)
+            states.append([d[fpos], cnt])
+        else:
+            raise NotImplementedError(a.name)
+    return {"ngroups": ngroups, "keys": [k[posc] for k in keys],
+            "key_nulls": [kn[posc] for kn in key_nulls], "states": states}
+
+
+def runs_agg_body(ctx, mask, group_items, aggs, cap, group_bucket):
+    """sort_agg_body's card lowering without the sort: the group keys
+    are evaluated and contiguous equal-key runs become partial groups
+    (_runs_agg_core). Same output contract as sort_agg_body, except that
+    groups come in first-occurrence order and an unclustered key yields
+    several partials for the merge to combine."""
+    if not group_items:
+        return _no_groups(ctx, mask, aggs, cap)
+    keys, key_nulls, _ = _group_keys(ctx, group_items, cap)
+    return _runs_agg_core(keys, key_nulls, mask, ctx, aggs, cap,
+                          group_bucket)
+
+
+def _multisort_order(keys, key_nulls, nullable, mask, cap):
+    """Chained stable sorts (the reference's multisort branch): rows
+    ordered by (masked out, then per key: NULL flag, value); a key
+    without a null mask skips its flag's sort, which would move only the
+    masked-out rows that the last sort moves anyway. -> (order, change:
+    the key changes between neighbours in that order)."""
+    dev = mask.device
+
+    def sort_by(order, arr):
+        return order[torch.sort(arr[order], stable=True).indices]
+    skeys = [torch.where(mask, k, _I64_MAX) for k in keys]
+    sflags = [torch.where(mask, kn.to(INT64), 2) if nb else None
+              for kn, nb in zip(key_nulls, nullable)]
+    order = torch.arange(cap, dtype=INT64, device=dev)
+    for sk, sf in zip(reversed(skeys), reversed(sflags)):
+        order = sort_by(order, sk)
+        if sf is not None:
+            order = sort_by(order, sf)
+    order = sort_by(order, (~mask).to(INT64))
+    neq = torch.zeros(cap - 1, dtype=torch.bool, device=dev)
+    for arr in skeys + [f for f in sflags if f is not None]:
+        s = arr[order]
+        neq = neq | (s[1:] != s[:-1])
+    change = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), neq])
+    return order, change
+
+
+def sort_agg_body(ctx, mask, group_items, aggs, cap, group_bucket,
+                  impl=None):
+    """Sort-based partial aggregation over an eval ctx + row mask (the
+    general group domain; reference sort_agg_body), shared by the fused
+    pipeline and the tests. -> {"ngroups", "keys", "key_nulls",
+    "states"}: the first `group_bucket` groups' keys and states, and the
+    group count (the caller regrows the bucket and reruns when it is
+    larger).
+
+    `impl` (default _segment_impl) "runs" takes runs_agg_body. Otherwise
+    the rows are ordered by chained stable sorts (_multisort_order) in
+    every case: the reference's single packed-key sort is chosen by a
+    device value, a branch eager torch could take only after a host
+    read; the group order differs from the packed order only in where
+    NULL keys sort, which the host merge does not see. Then "scatter"
+    reduces every state by scatter into the group ordinal, and "sorted"
+    takes int64 sums and counts as prefix-sum differences over the
+    sorted rows and scatters only float sums, min/max and first_row."""
+    impl = impl or _segment_impl(ctx.xp.device)
+    if impl == "runs":
+        return runs_agg_body(ctx, mask, group_items, aggs, cap,
+                             group_bucket)
+    if not group_items:
+        return _no_groups(ctx, mask, aggs, cap)
+    dev = mask.device
+    keys, key_nulls, nullable = _group_keys(ctx, group_items, cap)
+    order, change = _multisort_order(keys, key_nulls, nullable, mask, cap)
+    sorted_mask = mask[order]
+    cs = torch.cumsum((change & sorted_mask).to(INT64), 0)
+    ngroups = cs[cap - 1]
+    gb = group_bucket
+    first = torch.clamp(torch.searchsorted(
+        cs, torch.arange(1, gb + 1, dtype=INT64, device=dev)), max=cap - 1)
+    last = torch.clamp(torch.searchsorted(
+        cs, torch.arange(2, gb + 2, dtype=INT64, device=dev)), max=cap) - 1
+    ordinal = cs - 1
+    iota = torch.arange(cap, dtype=INT64, device=dev)
+    out_keys = [k[order][first] for k in keys]
+    out_key_nulls = [kn[order][first] for kn in key_nulls]
+    states = []
+    for a in aggs:
+        d, row_ok = _agg_eval_rows(ctx, a, mask, cap)
+        dv, ok = d[order], row_ok[order]
+        index = _seg_index(ordinal, ok, gb)
+        oki = ok.to(INT64)
+        if impl == "sorted":
+            cnt = _span_diff(oki, first, last)
+        else:
+            cnt = _seg_sum(index, oki, gb)
+        if a.name == "count":
+            states.append([cnt])
+        elif a.name in ("sum", "avg"):
+            v0 = torch.where(ok, dv, torch.zeros((), dtype=dv.dtype,
+                                                 device=dev))
+            if impl == "sorted" and not dv.dtype.is_floating_point:
+                s = _span_diff(v0, first, last)
+            else:
+                s = _seg_sum(index, v0, gb)
+            states.append([s, cnt])
+        elif a.name in ("min", "max"):
+            states.append([_seg_reduce(
+                index, dv, gb, "amin" if a.name == "min" else "amax",
+                _minmax_sentinel(a.name, dv.dtype)), cnt])
+        elif a.name == "first_row":
+            fi = _seg_reduce(index, iota, gb, "amin", cap - 1)
+            states.append([dv[fi], cnt])
+        else:
+            raise NotImplementedError(a.name)
+    return {"ngroups": ngroups, "keys": out_keys,
+            "key_nulls": out_key_nulls, "states": states}
 
 
 def sorted_run_starts(kvecs, min_rows=1024):

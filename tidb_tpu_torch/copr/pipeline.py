@@ -25,24 +25,37 @@ A fragment runs, in order:
   post filters        conditions over fact and dim columns
   aggregation         dense (group codes in a small domain), posdense
                       (the group is the join position in <= 2^22 dim
-                      rows: Q3, Q5, Q10) or, for a zero-dim global
-                      aggregate with range filters, range_filter_sums
+                      rows: Q3, Q5, Q10 on the CPU), for a zero-dim
+                      global aggregate with range filters
+                      range_filter_sums, or the sort kind for any other
+                      group domain (Q2, Q7, Q8, Q9, Q11, Q16, Q18, Q20):
+                      dag_exec.sort_agg_body over the rows that passed,
+                      gathered first into a learned compact capacity
+                      when few pass
 
 The dense layouts reach the ops/ scan kernels through
 dag_exec.dense_agg_states: one slot -> ops.masked_sums, <= 64 slots ->
 ops.dense_group_sums (Q1, Q4, Q5, Q12, Q22), any larger domain the torch
-scatter (Q3's 1.5 M orders positions at SF1). copr/dag_exec.py's header
-has the aggregate shapes each kernel takes.
+scatter on the CPU. On the card, as on the reference's device, a dense
+or posdense domain over dag_exec._BCR_MAX slots takes the sort kind
+instead, lowered as runs (Q3's and Q10's join positions inherit
+lineitem's order by l_orderkey). copr/dag_exec.py's header has the
+aggregate shapes each kernel takes.
+
+The sort kind learns three things per query shape in copr._host_cache,
+each with a rerun of the partition that showed it (on a cold statement;
+a warm one reuses what was learned): the group bucket (the partials a
+fragment returns, at least 1024, regrown when ngroups exceeds it), the
+compact capacity (_compact_policy), and a pin from runs to sorted when
+the runs are not clustered (ngroups > max(_RUNS_DEGRADE_MIN, rows / 4)).
 
 Not yet ported, each declined before dispatch with last_fused_reason
 "not yet ported: ..." so the executor takes its counted host path:
-sort, runs and one-hot aggregation (group domains that are neither
-dense nor a join position: Q2, Q7, Q8, Q9, Q11, Q16, Q18, Q3 at SF10),
-materialized (subplan) dims (Q13, Q17, Q21), and device ops outside
-TORCH_OPS. The reference's early compaction of fact-filter survivors
-(its ecap, a learned speed-up) is not ported either: every fragment
-runs at the full partition capacity, which gives the same rows. The
-MPP mesh path is not ported (one card).
+materialized (subplan) dims (Q13, Q17, Q21) and device ops outside
+TORCH_OPS. The reference's one-hot aggregation, its device top-N
+candidate selection and its early compaction of fact-filter survivors
+(ecap) are learned speed-ups that give the same rows and are not ported
+either. The MPP mesh path is not ported (one card).
 """
 from __future__ import annotations
 
@@ -58,12 +71,14 @@ from ..expression.vec import materialize_nulls
 from ..expression.torch_ns import TORCH_OPS, ops_of
 from ..chunk.device import shape_bucket
 from ..utils.torchcfg import INT64
+from . import dag_exec as _de
 from .dag_exec import (PartialAggResult, capture_agg_dicts, _dense_strides,
                        dense_agg_body, dense_agg_states,
                        dense_agg_states_range, fold_pairs, kernel_aggs_fit,
-                       _compact_dense, _I64_MAX)
+                       sort_agg_body, _compact_dense, _dense_nslots,
+                       _segment_impl, _I64_MAX)
 from .range_lowering import lower_filters
-from ..utils.fetch import prefetch, host_array
+from ..utils.fetch import prefetch, host_array, host_int
 from ..utils import failpoint
 from ..utils import phase
 from ..utils import memory as _memory
@@ -221,6 +236,33 @@ def _plan_base_tables(engine, plan, out=None):
 _DIRECT_SPAN_BUDGET = 1 << 24
 # largest posdense slot domain (product of the position dims' rows)
 _POS_DENSE_MAX = 1 << 22
+
+
+def _compact_policy(copr, compk, ccap, nvalid, denom):
+    """Learn/regrow rule of the sort kind's compact-then-aggregate
+    capacity (reference _compact_policy). -> "retry" when the fragment
+    must run again with a larger compact buffer, else None. First sight
+    of a shape learns the bucket when the survivors are at most 1/8 of
+    the partition and pins compaction off otherwise; an overflow regrows
+    it, or pins it off when survivors passed 1/4. A partition seen
+    without compaction never shrinks what another partition learned
+    (the reference overwrites it, so its next statement reruns the
+    larger partition once)."""
+    if ccap is not None and nvalid > ccap:
+        if nvalid > denom // 4:
+            copr._host_cache[compk] = "off"
+        else:
+            copr._host_cache[compk] = shape_bucket(nvalid)
+        return "retry"
+    learned = copr._host_cache.get(compk)
+    if ccap is None and learned != "off":
+        if nvalid <= denom // 8:
+            copr._host_cache[compk] = max(
+                shape_bucket(max(nvalid, 1)),
+                learned if isinstance(learned, int) else 0)
+        else:
+            copr._host_cache[compk] = "off"
+    return None
 
 
 def _dim_sort_meta(copr, dim, tbl, read_ts):
@@ -669,7 +711,11 @@ def _make_pipeline_body(plan, fact_cap, fact_sdicts, dim_caps, dim_ns,
     partition capacity, xp the TorchNS of the copr's device; dim_ns are
     the dims' row counts, dim_sns their valid sorted-key counts (the
     searchsorted bound). agg_kind "dense" takes the group layout
-    `agg_param` (sizes), "posdense" (pos_dims, nslots). The reference's
+    `agg_param` (sizes), "posdense" (pos_dims, nslots), "sort" (group
+    bucket, lowering, top-N (always None: not ported), compact capacity
+    or None); a sort result also carries nvalid, the rows that reached
+    the aggregation, from which the caller learns the capacity. The
+    reference's
     _build_fused_kernel jit-compiles this body; torch runs it eagerly,
     so there is nothing to build. A zero-dim global aggregation (one
     slot) whose filters lower to column bounds runs them in
@@ -711,7 +757,32 @@ def _make_pipeline_body(plan, fact_cap, fact_sdicts, dim_caps, dim_ns,
                 slot = slot * dim_ns[di] + dim_pos[di]
             slot = torch.where(mask, slot, nslots)
             return dense_agg_states(ctx, mask, aggs, slot, nslots, cap)
-        return dense_agg_body(ctx, mask, group_items, aggs, agg_param, cap)
+        if agg_kind == "dense":
+            return dense_agg_body(ctx, mask, group_items, aggs, agg_param,
+                                  cap)
+        gb, agg_impl, _topn, ccap = agg_param
+        csum = torch.cumsum(mask.to(INT64), 0)
+        nvalid = csum[cap - 1]
+        if ccap is not None:
+            # compact, then aggregate: the rows that passed are gathered
+            # in order into a learned ccap-row buffer (cumsum +
+            # searchsorted + gather), so a selective pipeline's sort or
+            # runs pass pays for its survivors, not the partition. The
+            # caller reruns with a larger ccap when nvalid exceeds it.
+            dev = xp.device
+            src = torch.clamp(torch.searchsorted(csum, torch.arange(
+                1, ccap + 1, dtype=INT64, device=dev)), max=cap - 1)
+            ccols = {k: (d[src], nl[src] if isinstance(nl, torch.Tensor)
+                         else nl, sd) for k, (d, nl, sd) in ctx.cols.items()}
+            res = sort_agg_body(
+                EvalCtx(xp, ccap, ccols, host=False),
+                torch.arange(ccap, dtype=INT64, device=dev) < nvalid,
+                group_items, aggs, ccap, gb, impl=agg_impl)
+        else:
+            res = sort_agg_body(ctx, mask, group_items, aggs, cap, gb,
+                                impl=agg_impl)
+        res["nvalid"] = nvalid
+        return res
     return body
 
 
@@ -719,8 +790,9 @@ def _decline_reason(plan):
     """-> why this plan's shape is not ported to the device yet, or None
     when it is: table dims (no subplan), evaluator ops checked under
     torch in the fact filters, the dims' filters and probe keys, the
-    post filters, the group items and the aggregate arguments. The
-    aggregation layout is decided at run time (_fused_partials_inner)."""
+    post filters, the group items and the aggregate arguments. Every
+    group domain has a layout (dense, posdense or the sort kind,
+    chosen at run time in _fused_partials_inner)."""
     if any(d.subplan is not None for d in plan.dims):
         return "not yet ported: materialized (subplan) dimensions"
     exprs = list(plan.fact_dag.filters) + list(plan.post_filters) + \
@@ -738,14 +810,6 @@ def _decline_reason(plan):
     missing = sorted(used - TORCH_OPS)
     if missing:
         return "not yet ported: device ops " + ",".join(missing)
-    return None
-
-
-def _decline_layout(copr):
-    """Decline a plan whose group domain has no ported layout."""
-    _set_reason(copr, "not yet ported: fused sort, runs or one-hot "
-                "aggregation (the group domain is neither dense nor a "
-                "dimension position)")
     return None
 
 
@@ -903,12 +967,6 @@ def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
     shim = _AggShim(plan.group_items, plan.aggs)
     kd, sd = capture_agg_dicts(shim, one)
     pos_spec = _pos_group_map(plan, dim_metas)
-    if plan.dims and pos_spec is None and \
-            _dense_strides(shim, kd) is None:
-        # with dims only dict-coded keys take the dense layout, so a plan
-        # that has neither layout declines here, before the fact snapshot
-        # and the dim uploads (the delta's codes below only grow dicts)
-        return _decline_layout(copr)
 
     fact_arrays, fact_valid = fact_tbl.snapshot(
         [cid for cid in (_cid_of(plan.fact_dag, sc)
@@ -936,6 +994,16 @@ def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
         delta_part = _delta_partition(plan, fact_tbl, fact_arrays,
                                       delta_rows)
         kd, sd = capture_agg_dicts(shim, one)
+
+    def dense_sizes(fcols):
+        sizes = _dense_strides(shim, kd, fcols, n)
+        if sizes is not None and delta_part is not None and \
+                not _delta_in_span(shim, sizes, delta_part):
+            # dense layouts clip group codes to the derived span: a
+            # delta key OUTSIDE it would silently merge into a boundary
+            # group; those executions take the exact sort kind
+            return None
+        return sizes
     sizes = None
     if pos_spec is None:
         fcols = None
@@ -949,19 +1017,17 @@ def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
                 cid = _cid_of(plan.fact_dag, sc)
                 fcols[sc.col.idx] = (handles, None, None) if cid == -1 \
                     else fact_arrays[cid]
-        sizes = _dense_strides(shim, kd, fcols, n)
-        if sizes is not None and delta_part is not None and \
-                not _delta_in_span(shim, sizes, delta_part):
-            # dense layouts clip group codes to the derived span: a
-            # delta key OUTSIDE it would silently merge into a boundary
-            # group
+        sizes = dense_sizes(fcols)
+    if _segment_impl(copr.device) == "runs":
+        # the reference's device rule: a dense or position domain over
+        # _BCR_MAX slots takes the sort kind, lowered as runs (join
+        # positions inherit the fact table's clustering, so Q3's
+        # group-by-FK stays compact) instead of a scatter into slots
+        if pos_spec is not None and pos_spec[2] > _de._BCR_MAX:
+            pos_spec = None
+            sizes = dense_sizes(None)
+        if sizes is not None and _dense_nslots(sizes) > _de._BCR_MAX:
             sizes = None
-        if sizes is None:
-            return _decline_layout(copr)
-    if pos_spec is not None:
-        agg_kind, agg_param = "posdense", (tuple(pos_spec[1]), pos_spec[2])
-    else:
-        agg_kind, agg_param = "dense", tuple(sizes)
 
     # upload dims once (shared across fact partitions)
     dim_args, dim_layouts, dim_caps, dim_ns, dim_sns = [], [], [], [], []
@@ -979,6 +1045,16 @@ def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
     fact_sdicts = {k: v[2] for k, v in one.items() if k in fact_idx}
     out = []
     step = copr.device_rows
+    # the sort kind's learned state, per query shape; the lowering pin
+    # and the compact capacity per gc epoch (a compaction that restores
+    # clustering lets a pinned shape try runs again)
+    gbkey = ("gb", fact_tbl.uid,
+             tuple(g.fingerprint() for g in plan.group_items),
+             tuple(a.fingerprint() for a in plan.aggs))
+    implk = ("aggimpl", fact_tbl.gc_epoch) + gbkey
+    compk = ("fcompact", fact_tbl.gc_epoch) + gbkey
+    group_bucket = max(1024, copr._host_cache.get(gbkey, 0))
+    dom = getattr(copr, "domain", None)
 
     def _partitions():
         for start in range(0, n, step):
@@ -989,7 +1065,7 @@ def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
                                     cacheable=(n == fact_tbl.n))
             # capture this partition's device-cache keys: the pipelined
             # loop binds the NEXT partition (overwriting copr._bind_keys)
-            # before this one is consumed
+            # before this one is consumed, and a retry binds it again
             yield pcols, fact_valid[sl], pm, dict(copr._bind_keys)
         if delta_part is not None:
             # the transaction's uncommitted inserts as one more fact
@@ -999,9 +1075,21 @@ def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
             yield dcols, dv, len(dv), {}
 
     def _dispatch_part(cols, v, m, bind_keys):
-        """Upload + dispatch one fact partition; its result tree comes
-        back with the device->host copies already in flight."""
+        """Upload + dispatch one fact partition with the lowering learned
+        so far. -> (result tree with its device->host copies in flight,
+        capacity, agg kind, agg param)."""
         cap = shape_bucket(m)
+        if pos_spec is not None:
+            agg_kind = "posdense"
+            agg_param = (tuple(pos_spec[1]), pos_spec[2])
+        elif sizes is not None:
+            agg_kind, agg_param = "dense", tuple(sizes)
+        else:
+            ccap = copr._host_cache.get(compk)
+            agg_kind, agg_param = "sort", (
+                group_bucket,
+                copr._host_cache.get(implk) or _segment_impl(copr.device),
+                None, ccap if isinstance(ccap, int) else None)
 
         def build():
             return _make_pipeline_body(
@@ -1015,7 +1103,8 @@ def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
         else:
             # a zero-dim body holds its range lowering (lower_filters,
             # fold_pairs), worth caching for warm statements
-            key = _fused_cache_key(plan, fact_tbl, cap, agg_param)
+            key = _fused_cache_key(plan, fact_tbl, cap, agg_kind,
+                                   agg_param)
             kern = copr._kernel_cache.get(key)
             if kern is None:
                 kern = copr._kernel_cache.put(key, build())
@@ -1026,31 +1115,84 @@ def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
         # retry lives one level up (executors.FusedPipelineExec wraps
         # the whole fused_partials call in guarded_dispatch site="fused")
         failpoint.inject("device_guard/fused/kernel")
-        return prefetch(kern(fjc, fvv, dim_args))
+        return (prefetch(run_fragment(kern, fjc, fvv, dim_args)), cap,
+                agg_kind, agg_param)
 
-    def _consume(res):
-        if pos_spec is not None:
-            return _compact_pos_dense(res, pos_spec[0], pos_spec[1],
-                                      dim_metas, sd)
-        return _compact_dense(shim, res, sizes, kd, sd)
+    def _relearn(metric, cols, v, m, bind_keys):
+        if dom is not None:
+            dom.inc_metric(metric)
+        return _dispatch_part(cols, v, m, bind_keys)
+
+    def _consume(state, cols, v, m, bind_keys):
+        nonlocal group_bucket
+        while True:
+            res, cap, agg_kind, agg_param = state
+            if agg_kind == "posdense":
+                return _compact_pos_dense(res, pos_spec[0], pos_spec[1],
+                                          dim_metas, sd)
+            if agg_kind == "dense":
+                return _compact_dense(shim, res, sizes, kd, sd)
+            ngroups = host_int(res["ngroups"])
+            if _compact_policy(copr, compk, agg_param[3],
+                               host_int(res["nvalid"]), cap) == "retry":
+                state = _relearn("fused_compact_regrow", cols, v, m,
+                                 bind_keys)
+                continue
+            if agg_param[1] == "runs" and \
+                    ngroups > max(_de._RUNS_DEGRADE_MIN, m // 4):
+                # unclustered group keys: pin this query shape to the
+                # sorted lowering before learning an inflated bucket.
+                # A rule on the shape of the data, not a fallback
+                copr._host_cache[implk] = "sorted"
+                state = _relearn("fused_runs_degrade", cols, v, m,
+                                 bind_keys)
+                continue
+            if ngroups > agg_param[0]:
+                # compare with the bucket THIS fragment ran with: an
+                # overflowed run dropped groups and must run again
+                group_bucket = max(group_bucket, shape_bucket(ngroups))
+                copr._host_cache[gbkey] = group_bucket
+                state = _relearn("fused_bucket_regrow", cols, v, m,
+                                 bind_keys)
+                continue
+            return PartialAggResult(
+                ngroups=ngroups,
+                keys=[host_array(k)[:ngroups] for k in res["keys"]],
+                key_nulls=[host_array(kn)[:ngroups]
+                           for kn in res["key_nulls"]],
+                states=[[host_array(s)[:ngroups] for s in st]
+                        for st in res["states"]],
+                key_dicts=kd, state_dicts=sd)
 
     # partition pipelining: partition i+1's padding/upload/dispatch is
     # issued BEFORE partition i's results are consumed, so the card
-    # computes while the host binds the next partition
+    # computes while the host binds the next partition. A retry at
+    # consume time reruns only its own partition, with what was learned
     pending = []
-    for cols, v, m, bkeys in _partitions():
-        pending.append(_dispatch_part(cols, v, m, bkeys))
+    for part in _partitions():
+        pending.append((_dispatch_part(*part), part))
         if len(pending) >= _PIPELINE_DEPTH:
-            out.append(_consume(pending.pop(0)))
-    for res in pending:
-        out.append(_consume(res))
+            state, part0 = pending.pop(0)
+            out.append(_consume(state, *part0))
+    for state, part0 in pending:
+        out.append(_consume(state, *part0))
     return out
 
 
-def _fused_cache_key(plan, fact_tbl, cap, sizes):
+def run_fragment(kern, fjc, fvv, dargs):
+    """Enqueue one fragment call on the card: the seam around the
+    fragment alone (not its uploads or its fetch), which chip_smoke.py
+    runs under torch.cuda.set_sync_debug_mode("error") to show that the
+    fragment never waits on the card."""
+    return kern(fjc, fvv, dargs)
+
+
+def _fused_cache_key(plan, fact_tbl, cap, agg_kind, agg_param):
     """What a zero-dim fragment bakes in: the plan's expressions, the
-    partition capacity, the fact table's dictionary sizes and the dense
-    group layout."""
+    partition capacity, the fact table's dictionary sizes and the
+    aggregation kind with its parameters (the dense group layout, or
+    the sort kind's bucket, lowering and compact capacity: a regrown
+    bucket never reuses a fragment built for the old one)."""
     dict_vers = tuple(sorted((cid, len(d.values))
                              for cid, d in fact_tbl.dicts.items()))
     fps = tuple(f.fingerprint() for f in plan.fact_dag.filters)
@@ -1059,4 +1201,4 @@ def _fused_cache_key(plan, fact_tbl, cap, sizes):
     colsig = tuple(sorted((sc.col.idx, sc.name)
                           for sc in plan.fact_dag.cols))
     return ("fused", fact_tbl.uid, cap, fps, gfps, afps, dict_vers, colsig,
-            sizes)
+            agg_kind, agg_param)

@@ -107,21 +107,33 @@ class TorchNS:
             if t.device != self.device:
                 t = t.to(self.device)
             return t if td is None or t.dtype == td else t.to(td)
-        if isinstance(x, np.ndarray) or isinstance(x, np.generic):
-            a = np.asarray(x)
-            if a.dtype == object:
+        # a scalar becomes a fill on the device (its value rides as a
+        # kernel argument), an array a copy from pinned host memory: on
+        # the card neither waits, where torch.tensor(x, device=...) and
+        # a copy from pageable memory both block until the card is done
+        if isinstance(x, np.generic):
+            if x.dtype == object:
                 raise TypeError("object arrays have no device form")
-            t = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            return torch.full((), x.item(), dtype=td or torch_dtype(x.dtype),
+                              device=self.device)
+        if isinstance(x, np.ndarray):
+            if x.dtype == object:
+                raise TypeError("object arrays have no device form")
+            t = torch.from_numpy(np.ascontiguousarray(x))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            else:
+                t = t.to(self.device)
             return t if td is None or t.dtype == td else t.to(td)
         if isinstance(x, bool):
-            return torch.tensor(x, dtype=td or torch.bool,
-                                device=self.device)
+            return torch.full((), x, dtype=td or torch.bool,
+                              device=self.device)
         if isinstance(x, int):
-            return torch.tensor(x, dtype=td or torch.int64,
-                                device=self.device)
+            return torch.full((), x, dtype=td or torch.int64,
+                              device=self.device)
         if isinstance(x, float):
-            return torch.tensor(x, dtype=td or torch.float64,
-                                device=self.device)
+            return torch.full((), x, dtype=td or torch.float64,
+                              device=self.device)
         return self.asarray(np.asarray(x), dtype)
 
     def _fill_dtype(self, v, dtype):

@@ -75,6 +75,13 @@ def host_array(x):
     return np.asarray(x)
 
 
+def host_int(x) -> int:
+    """An int read (group counts, survivor counts) through host_array:
+    a prefetched member costs its tree's one wait, not a sync of its
+    own."""
+    return int(host_array(x))
+
+
 def prefetch(tree):
     """Start non-blocking copies of every CUDA tensor in a result tree
     (dict/list/tuple nests; anything else passes through) into pinned
