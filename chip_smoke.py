@@ -3,23 +3,27 @@ hand-written kernels, holds each against its plain PyTorch version,
 times them, then runs TPC-H Q6, Q1 and a global aggregate without range
 filters at SF1 from SQL to rows through the package's normal entry point
 (TestKit on the card), then the join queries whose fused fragments probe
-dimension tables on the card (Q3, Q4, Q5, Q10, Q12, Q14, Q19, Q22, and
-the sort-kind group-bys Q2, Q7, Q8, Q9, Q11, Q15, Q16, Q18, Q20 and Q20
-without its nation predicate; Q3 and Q10 aggregate as runs on the card),
-the queries with a fused node the port does not fuse yet (Q13, Q17,
-Q21), and Q6, Q1, the global aggregate, Q3 and Q5 again through the
-package's MySQL wire server, with a raw-socket client. Every statement's
-rows are held to the reference package's committed SF1 rows (or a numpy
-oracle), and its route to the counters of the fused path: fragments,
-host scans, declines, one dispatch and one sync per partition of a warm
-statement, no upload. Every fragment enqueue of the SQL and join phases
-runs under torch.cuda.set_sync_debug_mode("error"), so a blocking wait
-on the card inside a fragment fails the run. Each kernel is held to its
-plain version on inputs built from the loaded tables and on edge cases,
-and, in one more warm statement of every TestKit query, on the very
-tensors each fragment hands its wrapper. Each kernel's launches are
-counted per path, and so are the product pairs Q6 folds into
-range_filter_sums (one per partition and statement).
+dimension tables on the card (Q3, Q4, Q5, Q10, Q12, Q14, Q19, Q22, the
+sort-kind group-bys Q2, Q7, Q8, Q9, Q11, Q15, Q16, Q18, Q20 and Q20
+without its nation predicate, and Q13, Q17 and Q21, whose materialized
+dims run their subplans once and serve later statements from a cache;
+Q3 and Q10 aggregate as runs on the card), then reader-DAG statements
+(a filter and a top-N over lineitem, per-key counts that take the runs
+lowering and the runs->sorted pin, dense and global group-bys of a small
+table) against their host twin, and Q6, Q1, the global aggregate, Q3
+and Q5 again through the package's MySQL wire server, with a raw-socket
+client. Every statement's rows are held to the reference package's
+committed SF1 rows (or a numpy oracle, or the host twin), and its route
+to the counters of the fused path and the reader DAGs: fragments, host
+and device scans, no decline, one dispatch and one sync per partition of
+a warm statement, no upload. Every fragment enqueue of the SQL, join and
+reader phases runs under torch.cuda.set_sync_debug_mode("error"), so a
+blocking wait on the card inside a fragment fails the run. Each kernel
+is held to its plain version on inputs built from the loaded tables and
+on edge cases, and, in one more warm statement of every TestKit query
+that launches it, on the very tensors each fragment hands its wrapper.
+Each kernel's launches are counted per path, and so are the product
+pairs Q6 folds into range_filter_sums (one per partition and statement).
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one
 CUDA device and the CUDA toolkit (nvcc), and exits non-zero, printing no
@@ -450,8 +454,9 @@ def checked_kernels(run):
 
 
 class SyncGuard:
-    """Runs every fragment enqueue (copr/pipeline.py run_fragment: the
-    fragment's own call, not its uploads nor its fetch) under
+    """Runs every fragment enqueue (copr/dag_exec.py run_fragment, the
+    seam of the fused and the reader-DAG fragments: the fragment's own
+    call, not its uploads nor its fetch) under
     torch.cuda.set_sync_debug_mode("error"): a blocking wait on the card
     inside a fragment raises, and its statement fails. `calls` counts
     the enqueues it guarded. check() first shows the mode is live: a
@@ -482,8 +487,8 @@ class SyncGuard:
 
     def __enter__(self):
         import torch
-        from tidb_tpu_torch.copr import pipeline
-        self._orig = orig = pipeline.run_fragment
+        from tidb_tpu_torch.copr import dag_exec
+        self._orig = orig = dag_exec.run_fragment
 
         def guarded(*args):
             torch.cuda.set_sync_debug_mode("error")
@@ -493,12 +498,12 @@ class SyncGuard:
                 torch.cuda.set_sync_debug_mode(0)
             self.calls += 1
             return out
-        pipeline.run_fragment = guarded
+        dag_exec.run_fragment = guarded
         return self
 
     def __exit__(self, *exc):
-        from tidb_tpu_torch.copr import pipeline
-        pipeline.run_fragment = self._orig
+        from tidb_tpu_torch.copr import dag_exec
+        dag_exec.run_fragment = self._orig
 
 
 def phase_kernels(parts):
@@ -612,52 +617,63 @@ SQL_CASES = (("q6", "range_filter_sums", ("masked_sums",), 1),
              ("qsum", "masked_sums", ("range_filter_sums",), 0))
 
 # domain counters, visible from every thread: a statement that takes the
-# fused device path adds 1 to the first and 0 to the others
-ROUTE_COUNTERS = ("fused_pipeline_hit", "copr_host_exec",
+# fused device path adds 1 to the first and 0 to the others; a reader DAG
+# (a scan outside a fused node) counts on the device or on the host
+ROUTE_COUNTERS = ("fused_pipeline_hit", "copr_host_exec", "copr_device_exec",
                   "fused_pipeline_fallback", "fused_pipeline_error")
-# the sort kind's learning reruns (cold statements only)
+# the sort kind's learning reruns (cold statements only), fused and reader
 RETRY_COUNTERS = ("fused_bucket_regrow", "fused_runs_degrade",
-                  "fused_compact_regrow")
+                  "fused_compact_regrow", "copr_bucket_regrow",
+                  "copr_runs_degrade")
+# materialized dims: subplans run, and served from the cache
+MATDIM_COUNTERS = ("fused_matdim_build", "fused_matdim_hit")
 KERNELS = ("masked_sums", "dense_group_sums", "range_filter_sums")
 
 # the join queries: (query, the fused fragments of a warm statement, the
 # fragments only its first statement adds (a subquery whose value or
-# rows the cached plan keeps), the host reader-DAG scans of a first and
-# of a later statement). A fragment is (fact table, the kernel it
-# launches once per partition of that table, or None: a sort-kind
-# aggregation, plain PyTorch: Q3 and Q10's join positions over 64 slots
-# take the runs lowering on the card). No fused node of these declines.
-# The reader-DAG scans are those outside a fused node, run on the host
-# (ROADMAP A.4) as the reference runs them on its CPU.
+# rows the cached plan keeps, a materialized dim's subplan), the host
+# reader-DAG scans and the device reader DAGs (by table) of a first and
+# of a later statement, the materialized dims). A fragment is (fact
+# table, the kernel it launches once per partition of that table, or
+# None: a sort-kind aggregation, plain PyTorch: Q3 and Q10's join
+# positions over 64 slots take the runs lowering on the card). No fused
+# node of these declines. The host reader-DAG scans are pure scans and
+# filters under tidb_tpu_fragment_min_rows, as the reference routes
+# them. A later statement serves every materialized dim from the cache.
 JOIN_CASES = (
-    ("q3", (("lineitem", None),), (), (0, 0)),
-    ("q4", (("orders", "dense_group_sums"),), (), (0, 0)),
-    ("q5", (("lineitem", "dense_group_sums"),), (), (0, 0)),
-    ("q10", (("lineitem", None),), (), (0, 0)),
-    ("q12", (("lineitem", "dense_group_sums"),), (), (0, 0)),
-    ("q14", (("lineitem", "masked_sums"),), (), (0, 0)),
-    ("q19", (("lineitem", "masked_sums"),), (), (0, 0)),
+    ("q3", (("lineitem", None),), (), (0, 0), ((), ()), 0),
+    ("q4", (("orders", "dense_group_sums"),), (), (0, 0), ((), ()), 0),
+    ("q5", (("lineitem", "dense_group_sums"),), (), (0, 0), ((), ()), 0),
+    ("q10", (("lineitem", None),), (), (0, 0), ((), ()), 0),
+    ("q12", (("lineitem", "dense_group_sums"),), (), (0, 0), ((), ()), 0),
+    ("q14", (("lineitem", "masked_sums"),), (), (0, 0), ((), ()), 0),
+    ("q19", (("lineitem", "masked_sums"),), (), (0, 0), ((), ()), 0),
     ("q22", (("customer", "dense_group_sums"),),
-     (("customer", "range_filter_sums"),), (0, 0)),
-    ("q2", (("partsupp", None),), (), (5, 5)),
-    ("q7", (("lineitem", None),), (), (0, 0)),
-    ("q8", (("lineitem", None),), (), (0, 0)),
-    ("q9", (("lineitem", None),), (), (0, 0)),
-    ("q11", (("partsupp", None),), (("partsupp", "masked_sums"),), (0, 0)),
-    ("q15", (("lineitem", None),), (("lineitem", None),), (1, 1)),
-    ("q16", (("partsupp", None),), (), (1, 0)),
-    ("q18", (("lineitem", None),), (("lineitem", None),), (0, 0)),
-    ("q20", (), (("lineitem", None),), (3, 1)),
+     (("customer", "range_filter_sums"),), (0, 0), ((), ()), 0),
+    ("q2", (("partsupp", None),), (), (5, 5), ((), ()), 0),
+    ("q7", (("lineitem", None),), (), (0, 0), ((), ()), 0),
+    ("q8", (("lineitem", None),), (), (0, 0), ((), ()), 0),
+    ("q9", (("lineitem", None),), (), (0, 0), ((), ()), 0),
+    ("q11", (("partsupp", None),), (("partsupp", "masked_sums"),), (0, 0),
+     ((), ()), 0),
+    ("q15", (("lineitem", None),), (("lineitem", None),), (1, 1), ((), ()),
+     0),
+    ("q16", (("partsupp", None),), (), (1, 0), ((), ()), 0),
+    ("q18", (("lineitem", None),), (("lineitem", None),), (0, 0), ((), ()),
+     0),
+    ("q20", (), (("lineitem", None),), (3, 1), ((), ()), 0),
     # Q20 returns no row at SF1; without its nation predicate it does,
     # through the IN-subquery result Q20's first statement computed
-    ("q20_all_nations", (), (), (1, 1)),
+    ("q20_all_nations", (), (), (1, 1), ((), ()), 0),
+    # materialized dims: Q13's per-customer order counts (a
+    # reader-DAG aggregation over orders), Q17's per-part average and
+    # Q21's two per-order supplier counts (zero-dim fused group-bys)
+    ("q13", (("customer", None),), (), (0, 0), (("orders",), ()), 1),
+    ("q17", (("lineitem", "masked_sums"),), (("lineitem", None),), (0, 0),
+     ((), ()), 1),
+    ("q21", (("lineitem", None),), (("lineitem", None), ("lineitem", None)),
+     (0, 0), ((), ()), 2),
 )
-# queries with a fused node the port does not fuse yet (materialized
-# dims, ROADMAP A.3): (query, fused fragments of every statement, fused
-# nodes that decline, host reader-DAG scans), run cold and warm
-DECLINED_CASES = (("q13", (), 1, 2),
-                  ("q17", (("lineitem", None),), 1, 2),
-                  ("q21", (("lineitem", None), ("lineitem", None)), 1, 4))
 
 
 def table_rows(tk, table):
@@ -677,22 +693,19 @@ def route_of(tk, q, nparts, first=False):
     "pairs": product pairs folded, "fragments": fused fragments,
     "dispatches": fragment calls of a warm statement (a first one may
     rerun a partition while it learns), "host": reader-DAG scans on the
-    host, "declined": fused nodes that decline}; nparts is lineitem's
+    host, "device": reader DAGs on the card, "matdims": materialized
+    dims, served from the cache on a later run}; nparts is lineitem's
     partitions."""
     case = next((c for c in SQL_CASES if c[0] == q), None)
     if case is not None:
         _q, kname, absent, pairs = case
         return {"launches": {kname: nparts}, "absent": absent,
                 "pairs": pairs * nparts, "fragments": 1,
-                "dispatches": nparts, "host": 0, "declined": 0}
-    case = next((c for c in JOIN_CASES if c[0] == q), None)
-    if case is not None:
-        _q, frags, cold, host = case
-        frags = frags + (cold if first else ())
-        host, declined = host[0 if first else 1], 0
-    else:
-        _q, frags, declined, host = next(c for c in DECLINED_CASES
-                                         if c[0] == q)
+                "dispatches": nparts, "host": 0, "device": 0, "matdims": 0}
+    _q, frags, cold, host, readers, matdims = next(
+        c for c in JOIN_CASES if c[0] == q)
+    frags = frags + (cold if first else ())
+    readers = readers[0 if first else 1]
     launches = {}
     for fact, kname in frags:
         if kname is not None:
@@ -701,8 +714,10 @@ def route_of(tk, q, nparts, first=False):
     return {"launches": launches,
             "absent": tuple(k for k in KERNELS if k not in launches),
             "pairs": 0, "fragments": len(frags),
-            "dispatches": sum(partitions_of(tk, f) for f, _ in frags),
-            "host": host, "declined": declined}
+            "dispatches": sum(partitions_of(tk, t) for t in
+                              [f for f, _ in frags] + list(readers)),
+            "host": host[0 if first else 1], "device": len(readers),
+            "matdims": matdims}
 
 
 def sql_and_rows(tk, exp, q):
@@ -725,8 +740,9 @@ def sql_and_rows(tk, exp, q):
 
 def check_route(q, run, dom, m0, c0, route):
     """The statement ran route["fragments"] fused device fragments and
-    route["declined"] declined fused nodes, with route["host"] reader
-    DAGs on the host and no fused fragment failing; each kernel in
+    no declined fused node, with route["host"] reader DAGs on the host,
+    route["device"] on the card, and no fused fragment failing; each
+    kernel in
     route["launches"] launched that many times and those in
     route["absent"] not at all (counts from the snapshot c0 of
     scan_kernels.COUNTS), and it folded route["pairs"] product pairs
@@ -739,8 +755,8 @@ def check_route(q, run, dom, m0, c0, route):
     d = {c: dom.metrics.get(c, 0) - m0[c] for c in ROUTE_COUNTERS}
     want = {"fused_pipeline_hit": route["fragments"],
             "copr_host_exec": route["host"],
-            "fused_pipeline_fallback": route["declined"],
-            "fused_pipeline_error": 0}
+            "copr_device_exec": route["device"],
+            "fused_pipeline_fallback": 0, "fused_pipeline_error": 0}
     if d != want:
         fail(f"{q} {run}: routing counters {d}, expected {want} "
              f"({dom.last_fused_reason})")
@@ -844,7 +860,7 @@ def phase_sql(tk, exp, nparts, queries, guard):
             checked = i == 1 + WARM_RUNS
             route = route_of(tk, q, nparts, i == 0)
             m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS +
-                  RETRY_COUNTERS}
+                  RETRY_COUNTERS + MATDIM_COUNTERS}
             c0 = dict(sk.COUNTS)
             g0 = guard.calls
             phase.reset()
@@ -864,6 +880,13 @@ def phase_sql(tk, exp, nparts, queries, guard):
                        for c in RETRY_COUNTERS}
             if i > 0 and any(retries.values()):
                 fail(f"{q} warm run {i}: learning reruns {retries}")
+            mat = {c: dom.metrics.get(c, 0) - m0[c] for c in MATDIM_COUNTERS}
+            want_mat = {"fused_matdim_build": route["matdims"] if i == 0
+                        else 0,
+                        "fused_matdim_hit": 0 if i == 0 else route["matdims"]}
+            if mat != want_mat:
+                fail(f"{q} run {i}: materialized dims {mat}, expected "
+                     f"{want_mat}")
             if 0 < i and not checked:
                 warm.append(ms)
             kind = "cold" if i == 0 else "checked" if checked else "warm"
@@ -872,7 +895,8 @@ def phase_sql(tk, exp, nparts, queries, guard):
                             for k in route["launches"]}) +
                 f" product_pairs="
                 f"{sk.COUNTS['product_pairs'] - c0['product_pairs']}" +
-                ("".join(f" {c}={n}" for c, n in retries.items() if n)))
+                ("".join(f" {c}={n}" for c, n in
+                         list(retries.items()) + list(mat.items()) if n)))
         for name, n in route["launches"].items():
             if sum(c[0] == name for c in calls) != n:
                 fail(f"{q}: {n} {name} launches, "
@@ -894,50 +918,143 @@ def phase_sql(tk, exp, nparts, queries, guard):
     return meds
 
 
-def phase_declined(tk, exp, nparts, queries, guard):
-    """Queries with a fused node the port does not fuse yet: cold once
-    and warm once, rows == the committed reference rows, the route of
-    route_of (their other fused nodes run fused, under the sync guard),
-    and the decline reasons printed."""
-    from tidb_tpu_torch.copr import pipeline
+# the reader phase (ROADMAP A.4): statements whose scans run
+# outside a fused node, as reader DAGs on the card: (name, SQL, the
+# reader DAG's table, the kernel it launches once per partition or None,
+# the fused fragments around it (fact tables), whether it is a
+# materialized dim's subplan, so that a later statement serves it from
+# the cache). The filter (lineitem, over tidb_tpu_fragment_min_rows) and
+# the top-N (ties in l_quantity) are plain reader DAGs; "runs" and
+# "sorted" are the per-key counts a LEFT JOIN pre-aggregates (as Q13
+# does): l_orderkey clusters in storage order (the runs lowering keeps
+# it), l_partkey does not (the runs->sorted pin); "dense" and "global"
+# are group-bys of a table under 4,096 rows, which the planner pushes to
+# the reader DAG instead of a fused fragment.
+READER_CASES = (
+    ("filter", "select l_orderkey, l_partkey, l_extendedprice from lineitem"
+     " where l_shipdate >= '1998-06-01' and l_discount = 0.1 order by "
+     "l_orderkey, l_partkey", "lineitem", None, (), False),
+    ("topn", "select l_orderkey, l_quantity, l_extendedprice from lineitem "
+     "where l_shipdate < '1993-06-01' order by l_quantity desc limit 100",
+     "lineitem", None, (), False),
+    ("runs", "select c_count, count(*) as n from (select o_orderkey, "
+     "count(l_orderkey) as c_count from orders left join lineitem on "
+     "o_orderkey = l_orderkey and l_quantity <= 25 group by o_orderkey) as "
+     "t group by c_count order by c_count", "lineitem", None, ("orders",),
+     True),
+    ("sorted", "select c_count, count(*) as n from (select p_partkey, "
+     "count(l_partkey) as c_count from part left join lineitem on "
+     "p_partkey = l_partkey and l_discount <= 0.05 group by p_partkey) as t "
+     "group by c_count order by c_count", "lineitem", None, ("part",), True),
+    ("dense", "select n_regionkey, count(*), sum(n_nationkey) from nation "
+     "group by n_regionkey order by n_regionkey", "nation",
+     "dense_group_sums", (), False),
+    ("global", "select count(*), sum(n_nationkey) from nation where "
+     "n_regionkey >= 1", "nation", "masked_sums", (), False),
+)
+
+
+def phase_reader(tk, guard, cases=READER_CASES):
+    """Each reader statement on the card: cold, warm, and a third run
+    (warm again; a materialized dim's subplan re-materializes, its cache
+    emptied first, so its reader DAG runs with what it learned), then
+    its host twin (copr.use_device = False) on the same TestKit, whose
+    rows every run must equal as exact strings; a statement with a
+    kernel runs once more under checked_kernels. Each run is held to its
+    route: the reader DAG counted as copr_device_exec (no host scan), its
+    fused fragments, one dispatch and one sync per partition after the
+    first run (which may rerun a partition while it learns), no upload
+    on a warm run whose columns are resident, every enqueue under the
+    sync guard. -> {name: {"warm_ms": warm median, "rematerialized_ms":
+    the third run of a materialized dim's statement, "host_twin_ms"}}."""
     from tidb_tpu_torch.ops import scan_kernels as sk
     from tidb_tpu_torch.utils import phase
     dom = tk.domain
-    reasons, set_reason = [], pipeline._set_reason
-
-    def noted(copr, msg):
-        reasons.append(msg)
-        return set_reason(copr, msg)
-    pipeline._set_reason = noted
-    try:
-        for q in queries:
-            sql, want = sql_and_rows(tk, exp, q)
-            for i in range(2):
-                route = route_of(tk, q, nparts, i == 0)
-                m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS}
-                c0 = dict(sk.COUNTS)
-                g0 = guard.calls
-                reasons.clear()
-                phase.reset()
-                t0 = time.perf_counter()
+    copr = dom.copr
+    cuda = copr.device.type == "cuda"
+    out = {}
+    for name, sql, table, kname, fused, matdim in cases:
+        copr.use_device = False
+        t0 = time.perf_counter()
+        want = tk.must_query(sql)._norm()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        copr.use_device = True
+        warm, calls, remat = [], [], None
+        for i in range(3 + (kname is not None)):
+            checked = i == 3
+            cached = matdim and i == 1
+            if matdim and i == 2:
+                copr._matdim_lru.clear()
+                copr._matdim_bytes = 0
+            parts = partitions_of(tk, table)
+            nreader = 0 if cached else 1
+            disp = sum(partitions_of(tk, f) for f in fused) + \
+                nreader * parts
+            m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS +
+                  RETRY_COUNTERS}
+            c0 = dict(sk.COUNTS)
+            g0 = guard.calls
+            phase.reset()
+            t0 = time.perf_counter()
+            if checked:
+                got, calls = checked_kernels(
+                    lambda: tk.must_query(sql)._norm())
+            else:
                 got = tk.must_query(sql)._norm()
-                ms = (time.perf_counter() - t0) * 1e3
-                snap = phase.snap()
-                if got != want:
-                    fail(f"{q} run {i}: rows {got} != expected {want}")
-                check_route(q, f"run {i}", dom, m0, c0, route)
-                if len(reasons) != route["declined"] or not all(
-                        r.startswith("not yet ported: materialized")
-                        for r in reasons):
-                    fail(f"{q} run {i}: decline reasons {reasons}")
-                if snap.get("dispatches", 0) != guard.calls - g0:
-                    fail(f"{q} run {i}: fragment dispatches outside the "
-                         "sync guard")
-                log(f"declined {q} {'cold' if i == 0 else 'warm'} "
-                    f"{ms:.2f} ms {phase_line(snap)}; rows == expected "
-                    f"({len(want)} rows); declined: {reasons}")
-    finally:
-        pipeline._set_reason = set_reason
+            ms = (time.perf_counter() - t0) * 1e3
+            snap = phase.snap()
+            d = {c: dom.metrics.get(c, 0) - m0[c] for c in ROUTE_COUNTERS}
+            retries = {c: dom.metrics.get(c, 0) - m0[c]
+                       for c in RETRY_COUNTERS}
+            launches = {k: sk.COUNTS[k] - c0[k] for k in KERNELS}
+            if got != want:
+                fail(f"reader {name} run {i}: rows {got[:5]}... "
+                     f"({len(got)}) != host twin {want[:5]}... ({len(want)})")
+            route = {"fused_pipeline_hit": len(fused),
+                     "copr_host_exec": 0, "copr_device_exec": nreader,
+                     "fused_pipeline_fallback": 0, "fused_pipeline_error": 0}
+            if d != route:
+                fail(f"reader {name} run {i}: routing counters {d}, "
+                     f"expected {route}")
+            n, guarded = snap.get("dispatches", 0), guard.calls - g0
+            if n != guarded or snap.get("syncs", 0) != (n if cuda else 0):
+                fail(f"reader {name} run {i}: {n} dispatches, {guarded} "
+                     f"under the sync guard, {snap.get('syncs', 0)} syncs")
+            if (n != disp) if i > 0 else (n < disp):
+                fail(f"reader {name} run {i}: {n} dispatches, expected "
+                     f"{disp}")
+            if i > 0 and any(retries.values()):
+                fail(f"reader {name} run {i}: learning reruns {retries}")
+            if i > 0 and not (matdim and i == 2) and \
+                    snap.get("upload_bytes", 0):
+                fail(f"reader {name} warm run: uploaded "
+                     f"{snap['upload_bytes']} bytes")
+            want_l = {k: (nreader * parts if k == kname else 0)
+                      for k in KERNELS}
+            if launches != want_l:
+                fail(f"reader {name} run {i}: launches {launches}, expected "
+                     f"{want_l}")
+            if i == 2 and matdim:
+                remat = ms
+            elif 0 < i < 3:
+                warm.append(ms)
+            kind = ("cold", "warm", "rematerialized" if matdim else "warm",
+                    "checked")[i]
+            log(f"reader {name} {kind} {ms:.2f} ms {phase_line(snap)} "
+                f"launches={json.dumps({k: v for k, v in launches.items() if v})}"
+                + "".join(f" {c}={v}" for c, v in retries.items() if v))
+        if kname is not None:
+            if [c[0] for c in calls] != [kname] * parts:
+                fail(f"reader {name}: checked calls {calls}")
+            log(f"reader {name}: kernel calls == plain versions on the same "
+                "tensors: " + "; ".join(f"{c} {sh}" for c, sh in calls))
+        out[name] = {"warm_ms": statistics.median(warm),
+                     "rematerialized_ms": remat, "host_twin_ms": host_ms}
+        log(f"reader {name}: rows == host twin ({len(want)} rows); warm "
+            f"median {out[name]['warm_ms']:.3f} ms" +
+            ("" if remat is None else f", rematerialized {remat:.3f} ms") +
+            f", host twin {host_ms:.3f} ms")
+    return out
 
 
 class WireClient:
@@ -1130,14 +1247,14 @@ def main():
     # after; the kernel phase's launches count on neither
     by_path, pairs_by_path = {}, {}
 
-    def counted(path, run, folds=True):
+    def counted(path, run, folds=True, kernels=KERNELS):
         sk.reset_launches()
         out = run()
         by_path[path] = {fn.__name__: sk.COUNTS[fn.__name__]
                          for fn in sk.KERNELS}
         pairs_by_path[path] = sk.COUNTS["product_pairs"]
-        for name, n in by_path[path].items():
-            if n == 0:
+        for name in kernels:
+            if by_path[path][name] == 0:
                 fail(f"{name} was not launched on the {path} path")
         if folds and pairs_by_path[path] == 0:
             fail(f"no product pair was folded on the {path} path")
@@ -1149,15 +1266,16 @@ def main():
             tk, exp, nparts, [c[0] for c in SQL_CASES], guard))
         t0 = time.perf_counter()
 
-        def joins():
-            out = phase_sql(tk, exp, nparts, [c[0] for c in JOIN_CASES],
-                            guard)
-            phase_declined(tk, exp, nparts, [c[0] for c in DECLINED_CASES],
-                           guard)
-            return out
-        join_meds = counted("joins", joins, folds=False)
-    log(f"join phase {time.perf_counter() - t0:.1f} s; warm medians ms: "
-        f"{json.dumps(join_meds)}; {guard.calls} fragment enqueues ran "
+        join_meds = counted("joins", lambda: phase_sql(
+            tk, exp, nparts, [c[0] for c in JOIN_CASES], guard), folds=False)
+        log(f"join phase {time.perf_counter() - t0:.1f} s; warm medians "
+            f"ms: {json.dumps(join_meds)}")
+        t0 = time.perf_counter()
+        reader_ms = counted("reader", lambda: phase_reader(tk, guard),
+                            folds=False, kernels=("masked_sums",
+                                                  "dense_group_sums"))
+    log(f"reader phase {time.perf_counter() - t0:.1f} s; "
+        f"{json.dumps(reader_ms)}; {guard.calls} fragment enqueues ran "
         "under set_sync_debug_mode('error')")
     counted("wire", lambda: phase_wire(tk, exp, nparts, meds))
     log(f"launches by path: {json.dumps(by_path)}; folded product pairs "

@@ -1,5 +1,6 @@
 """The evaluator ops the fused dimension queries added to TORCH_OPS (IN,
-CASE, LIKE, SUBSTRING: TPC-H Q12, Q14, Q19, Q22) on the port's torch
+CASE, LIKE, SUBSTRING: TPC-H Q12, Q14, Q19, Q22; IF, IFNULL, COALESCE:
+the LEFT materialized dims of Q13 and Q21) on the port's torch
 namespace against the reference's numpy EvalCtx, as in
 tests/test_torch_expression.py: the same expression tree in both
 packages over the same numpy inputs, with NULLs in the columns and the
@@ -117,6 +118,20 @@ CASES = {
         P.F("substring", [C(P, 3), P.c(1), P.c(2)], P.s),
         P.c("13"), P.c("31"), P.c("23"), P.c("29"), P.c("30"), P.c("18"),
         P.c("17")], P.i),
+    # ---- IF / IFNULL / COALESCE
+    "ifnull_int_zero": lambda P: P.F("ifnull", [C(P, 0), P.c(0)], P.i),
+    "ifnull_null_fallback": lambda P: P.F("ifnull", [C(P, 0), P.null],
+                                          P.i),
+    "ifnull_dict_string": lambda P: P.F("ifnull", [C(P, 5), P.c("none")],
+                                        P.s),
+    "if_int": lambda P: P.F("if", [P.F(">", [C(P, 0), P.c(5)], P.i),
+                                   C(P, 0), P.c(-1)], P.i),
+    "if_null_condition": lambda P: P.F("if", [
+        P.F("=", [C(P, 0), P.c(3)], P.i), P.null, C(P, 0)], P.i),
+    "coalesce_int": lambda P: P.F("coalesce", [C(P, 0), P.null, P.c(7)],
+                                  P.i),
+    # ---- the rank recode around MIN/MAX of a string
+    "minmaxkey_dict": lambda P: P.F("_minmaxkey", [C(P, 4)], P.s),
 }
 
 

@@ -191,15 +191,20 @@ def test_null_probe_rows_drop(kits):
 
 def test_materialized_dim_declines_by_name(kits):
     """A dim over an aggregated subquery (dim_a LEFT JOIN fact groups
-    fact by a_id first) is not ported: the statement declines with its
-    reason and the conventional subtree answers."""
+    fact by a_id first), which the port once declined by name
+    ("materialized (subplan) dimensions"), now fuses: its subplan runs
+    once into a materialized dim, no reason is recorded, and the rows
+    equal the reference's."""
     sql = ("select dim_a.name, count(fact.k), count(*) from dim_a "
            "left join fact on fact.a_id = dim_a.id "
            "group by dim_a.name order by dim_a.name")
+    m = kits[1].domain.metrics
+    mat0 = m.get("fused_matdim_build", 0) + m.get("fused_matdim_hit", 0)
     rows, d = both(kits, sql)
-    assert d == FELL_BACK
-    assert kits[1].domain.last_fused_reason == \
-        "not yet ported: materialized (subplan) dimensions"
+    assert d == FUSED
+    assert kits[1].domain.last_fused_reason is None
+    assert m.get("fused_matdim_build", 0) + m.get("fused_matdim_hit", 0) \
+        == mat0 + 1
 
 
 def test_dim_updates_stay_fused(kits):

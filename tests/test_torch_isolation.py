@@ -1,5 +1,6 @@
-"""tidb_tpu_torch stands alone: it runs SQL (TPC-H Q6 and Q3, fused
-with its dimension probes), its range lowering and its
+"""tidb_tpu_torch stands alone: it runs SQL (TPC-H Q6; Q3, fused
+with its dimension probes; Q17, with a materialized dimension; a
+reader-DAG top-n), its range lowering and its
 wire server with jax and tidb_tpu blocked from import, no module of it
 (nor chip_smoke.py) imports them,
 and its entry points refuse to run on the host unless asked to."""
@@ -44,6 +45,17 @@ rows3 = tk.must_query(tpch.Q3)._norm()
 assert rows3 == tpch.q3_oracle(tk), rows3
 assert tk.domain.metrics.get("fused_pipeline_hit") == 2
 assert tk.domain.last_fused_reason is None
+# a materialized dim: Q17's per-part average runs as a subplan
+rows17 = tk.must_query(tpch.ALL_QUERIES["q17"])._norm()
+assert tk.domain.metrics.get("fused_matdim_build") == 1, rows17
+assert tk.domain.metrics.get("fused_pipeline_fallback", 0) == 0
+# a reader-DAG top-n on the device route
+tk.must_exec("set tidb_tpu_fragment_min_rows = 0")
+d0 = tk.domain.metrics.get("copr_device_exec", 0)
+top = tk.must_query("select l_quantity from lineitem where l_discount < "
+                    "0.03 order by l_quantity desc limit 5")._norm()
+assert tk.domain.metrics.get("copr_device_exec", 0) == d0 + 1, top
+assert len(top) == 5
 srv.shutdown()
 st.shutdown()
 bad = [m for m in sys.modules if m in ("jax", "jaxlib", "tidb_tpu")

@@ -13,9 +13,8 @@ predicate, returns rows here and runs first, so its IN-subquery is the
 one that runs fused (Q20 then reuses that subquery's result, in both
 packages).
 
-Q13, Q17 and Q21 hold materialized (subplan) dimensions, which the port
-does not fuse yet: each fused node of theirs that the reference runs
-and the port declines must be counted as a fallback with that reason."""
+Q13, Q17 and Q21 hold materialized (subplan) dimensions, which both
+packages fuse: the same fused fragments, no decline, no fallback."""
 import pytest
 
 from tidb_tpu.testkit import TestKit as RefKit
@@ -29,7 +28,6 @@ from tidb_tpu_torch.utils import phase as port_phase
 SF, SEED = 0.05, 7
 ORDER = [q for q in port_tpch.ALL_QUERIES if q != "q20"] + \
     ["q20_all_nations", "q20"]
-MATERIALIZED = ("q13", "q17", "q21")
 COUNTERS = ("fused_pipeline_hit", "fused_pipeline_fallback",
             "fused_pipeline_error")
 
@@ -89,14 +87,7 @@ def test_tpch_query_equals_reference(reference, port, q, monkeypatch):
     want, ref_fused = reference[q]
     assert got == want
     assert d["fused_pipeline_error"] == 0
-    if q in MATERIALIZED:
-        # each node the port declined is one the reference fused
-        assert d["fused_pipeline_fallback"] >= 1
-        assert d["fused_pipeline_hit"] + d["fused_pipeline_fallback"] == \
-            ref_fused
-        assert len(reasons) == d["fused_pipeline_fallback"]
-        assert all(r == "not yet ported: materialized (subplan) dimensions"
-                   for r in reasons), reasons
-    else:
-        assert d["fused_pipeline_hit"] == ref_fused
-        assert d["fused_pipeline_fallback"] == 0
+    assert d["fused_pipeline_hit"] == ref_fused
+    assert d["fused_pipeline_fallback"] == 0
+    assert not [r for r in reasons if r.startswith("not yet ported")], \
+        reasons

@@ -1,12 +1,14 @@
 """Where a TPC-H statement's time goes on the card: Q6, Q1 and the join
-queries Q3 and Q5 through TestKit on CUDA, cold once and then warm. It
+queries Q3 and Q5 by default, or any of the 22 at SF1, through TestKit
+on CUDA, cold once and then warm. It
 is the trace tool a performance change starts from (chip_smoke.py
 checks, this explains), and it runs the sizes chip_smoke.py does not:
 `--sf 10` is Q1's size in BASELINE.md.
 
 It reports the load's wall time and the process's peak resident memory
 after the load and at the end, and checks each query's rows against the
-numpy oracle (bench/tpch.py), failing on a mismatch. For each query
+numpy oracle (bench/tpch.py) or, at SF1, the committed reference rows
+(bench/tpch_sf1_expected.json), failing on a mismatch. For each query
   - the warm wall time per statement (host clock around work that ends
     in torch.cuda.synchronize) and lineitem rows scanned per second;
   - the device's busy time over the same statements under
@@ -65,6 +67,10 @@ STAGES = [
     # slicing of its partials to ngroups, the dense decodes above
     ("consume", "copr/pipeline.py", "_consume"),
     ("final_merge", "executor/executors.py", "_merge_partials"),
+    # a materialized dim's subplan (a hit costs the lookup alone) and
+    # the reader DAGs on the card
+    ("matdim", "copr/pipeline.py", "_materialized_dim_meta"),
+    ("reader_dag", "copr/dag_exec.py", "_execute_device_inner"),
 ]
 
 
@@ -164,7 +170,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--queries", default="q6,q1,q3,q5",
-                    help="comma-separated, of q6, q1, q3, q5")
+                    help="comma-separated TPC-H queries (q1..q22); at "
+                    "SF1 each is checked against the committed rows, "
+                    "at other scale factors only q6, q1, q3 and q5, "
+                    "against their numpy oracles")
     ap.add_argument("--out", default=os.path.join("chiprun_out",
                                                    "profile_tpch.json"))
     args = ap.parse_args(argv)
@@ -200,8 +209,19 @@ def main(argv=None):
           "GiB", flush=True)
     oracles = {"q6": tpch.q6_oracle, "q1": tpch.q1_oracle,
                "q3": tpch.q3_oracle, "q5": tpch.q5_oracle}
+    if args.sf == 1.0:
+        with open(os.path.join(os.path.dirname(__file__),
+                               "tpch_sf1_expected.json")) as f:
+            committed = json.load(f)
+        for q in tpch.ALL_QUERIES:
+            oracles.setdefault(q, lambda _tk, _w=committed[q]: [
+                tuple(r) for r in _w])
     for q in args.queries.split(","):
-        sql = tpch.QUERIES[q]
+        if q not in oracles:
+            print(f"profile_tpch: no rows to check {q} against at "
+                  f"SF{args.sf}", file=sys.stderr)
+            return 2
+        sql = tpch.ALL_QUERIES[q]
         r = rec["queries"][q] = {}
         prof = cProfile.Profile()
         t0 = time.perf_counter()

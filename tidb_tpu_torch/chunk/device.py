@@ -154,7 +154,7 @@ class StringDict:
     __slots__ = ("values", "index", "sort_keys", "_vec_cache",
                  "_vecmat_cache",
                  "_ci_norm", "_ci_fold", "_ci_ranks", "_ci_fold_ranks",
-                 "_rank_codes")
+                 "_rank_codes", "__weakref__")
 
     def __init__(self):
         self.values: list[str] = []

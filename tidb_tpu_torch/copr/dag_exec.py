@@ -41,10 +41,24 @@ a null mask (k <= 16, _kernel_args); a global reduce of any other shape
 runs the plain torch twin of the reference's masked reductions, and a
 slot domain the scatter.
 
-Not yet ported: the reader-DAG device fragments (the reference's
-filter / top-n / partition-aggregation kernels, the one-hot lowering
-and the MPP mesh path). Every reader DAG runs its host twin
-and is counted as a host execution (copr_host_exec / host_execs).
+A reader DAG (a scan outside a fused node: a filter, a top-n, a
+partition aggregation, or a materialized dim's subplan scan) is routed
+as the reference routes it (_execute_inner): virtual tables, DAGs whose
+expressions or column types have no device form (_dag_device_ready)
+and pure scans take the numpy host twin (copr_host_exec); a filter-only
+or top-n-only DAG under tidb_tpu_fragment_min_rows rows does too
+(copr_fragment_gated); every other DAG runs one fragment call per
+partition on the device (copr_device_exec): the validity mask ANDed with
+each filter (_run_filter_partition), a filter plus a stable top-k on one
+key (topn_body; on the CPU the reference's _topn_host), or the partition
+aggregation (_run_agg_partition: dense_agg_body, whose one- and <= 64-slot
+layouts reach masked_sums and dense_group_sums, or sort_agg_body, with
+the bucket regrow and runs->sorted pin of learn_sort_kind). Every
+fragment call of the device, reader or fused, goes through run_fragment.
+On the card a fragment that fails fails its statement; on the CPU it
+degrades to the host twin, as the reference does.
+
+Not yet ported: the one-hot lowering and the MPP mesh path.
 """
 from __future__ import annotations
 
@@ -56,16 +70,18 @@ import torch
 
 from ..expression import EvalCtx, eval_expr, eval_bool_mask
 from ..expression.expr import Column as ExprColumn, ScalarFunc
+from ..expression import vec as _vec
 from ..expression.vec import materialize_nulls, mul_is_plain_int64
-from ..expression.torch_ns import TorchNS
-from ..utils.fetch import prefetch, host_array
+from ..expression.torch_ns import TORCH_OPS, TorchNS, ops_of, torch_dtype
+from ..utils import env_int
+from ..utils.fetch import prefetch, host_array, host_int
 from .residency import DeviceResidentStore
 from ..utils import memory as _memory
 from ..utils import phase
 from ..utils import device_guard
 from ..utils import metrics as _metrics
 from ..utils.torchcfg import INT64, resolve_device
-from ..chunk.device import to_tensor
+from ..chunk.device import shape_bucket, to_tensor
 from ..chunk.column import Column
 from ..chunk.chunk import Chunk
 from ..ops import scan_kernels
@@ -123,6 +139,13 @@ class CoprExecutor:
         self.device_rows = device_rows
         self.use_device = use_device
         self.device = resolve_device(device)
+        # fragment selection (docs/PERFORMANCE.md): a filter/top-n-only
+        # fragment below this many rows runs the host twin — its work
+        # costs less than its dispatch and fetch. Aggregation fragments
+        # always dispatch: their partials shrink the fetch to group
+        # cardinality. The session's tidb_tpu_fragment_min_rows wins.
+        self.fragment_min_rows = env_int("TIDB_TPU_FRAGMENT_MIN_ROWS",
+                                         1 << 21)
         # on the card a fragment that fails fails its statement: the
         # numpy host twin serves only plans declined before dispatch.
         # On the CPU the guard degrades to it, as the reference does.
@@ -244,6 +267,7 @@ class CoprExecutor:
         arrays, valid = tbl.snapshot(
             [cid for cid in (self._cid(dag, sc) for sc in dag.cols)
              if cid != -1], read_ts)
+        snapshot_arrays = arrays
         n = len(valid)          # snapshot length, not live tbl.n
         if overlay:
             arrays, valid, n = self._apply_overlay(dag, tbl, arrays, valid,
@@ -258,12 +282,42 @@ class CoprExecutor:
                                       if len(handles) + len(self._overlay_handles) != n
                                       else handles,
                                       self._overlay_handles])
-        # the reader-DAG device fragments (filter / top-n / partition
-        # aggregation) are not yet ported: every reader DAG runs its
-        # host twin, counted as a host execution
-        if dag.table_info.id > -1000:
+        if not self.use_device or dag.table_info.id <= -1000 or \
+                not _dag_device_ready(dag, arrays):
+            if dag.table_info.id > -1000:
+                self._bump("copr_host_exec")
+            return self._execute_host(dag, tbl, arrays, valid, n, handles)
+        if not dag.filters and not dag.host_filters and not dag.aggs \
+                and not dag.group_items and dag.topn is None:
+            # pure scan: there is no compute to offload — a device
+            # "filter" fragment would upload every column to produce an
+            # identity mask and fetch it back. The columnar arrays
+            # already live host-side; materialize there.
             self._bump("copr_host_exec")
-        return self._execute_host(dag, tbl, arrays, valid, n, handles)
+            return self._execute_host(dag, tbl, arrays, valid, n, handles)
+        frag_min = self.fragment_min_rows
+        if ectx is not None:
+            try:
+                frag_min = int(ectx.sv.get("tidb_tpu_fragment_min_rows"))
+            except Exception:               # noqa: BLE001
+                pass
+        if not dag.aggs and not dag.group_items and n < frag_min:
+            # fragment selection: a filter/top-n-only fragment this
+            # small costs less than its dispatch, and its output (a row
+            # subset) feeds a host operator anyway
+            _metrics.FRAGMENT_ROUTING.labels("host_small").inc()
+            dom = getattr(self, "domain", None)
+            if dom is not None:
+                dom.inc_metric("copr_fragment_gated")
+            self._bump("copr_host_exec")
+            return self._execute_host(dag, tbl, arrays, valid, n, handles)
+        _metrics.FRAGMENT_ROUTING.labels("device").inc()
+        self._bump("copr_device_exec")
+        # device residency only for the table's own rows: an overlay's
+        # merged arrays are this statement's alone
+        cacheable = n == tbl.n and arrays is snapshot_arrays
+        return self._execute_device(dag, tbl, arrays, valid, n, handles,
+                                    ectx, cacheable)
 
     def _bump(self, name):
         """Routing metrics (reference pkg/util/execdetails): which copr
@@ -418,6 +472,239 @@ class CoprExecutor:
                 break
         return out
 
+    # ---- device path --------------------------------------------------
+    def _execute_device(self, dag, tbl, arrays, valid, n, handles,
+                        ectx=None, cacheable=False):
+        """Supervised device execution: each partition's fragment runs
+        under device_guard (classified retry/backoff, watchdog). On the
+        CPU an exhausted dispatch degrades the whole (sub)dag to the
+        host twin, as the reference does; on the card it fails the
+        statement (degrade_to_host is False)."""
+        try:
+            return self._execute_device_inner(dag, tbl, arrays, valid,
+                                              n, handles, ectx, cacheable)
+        except device_guard.DeviceDegradedError:
+            if not self.degrade_to_host:
+                raise
+            self._bump("copr_host_exec")
+            return self._execute_host(dag, tbl, arrays, valid, n,
+                                      handles)
+
+    def _execute_device_inner(self, dag, tbl, arrays, valid, n, handles,
+                              ectx=None, cacheable=False):
+        out = []
+        step = self.device_rows
+        produced = 0
+        dom = getattr(self, "domain", None)
+        to_host = self.degrade_to_host
+        for start in range(0, n, step):
+            sl = slice(start, min(start + step, n))
+            m = sl.stop - sl.start
+            cap = shape_bucket(m)
+            cols = self._bind_cols(dag, tbl, arrays, sl, handles,
+                                   cacheable=cacheable)
+            # this partition's device-cache keys: a retry binds again
+            bind_keys = dict(self._bind_keys)
+            v = valid[sl]
+            if dag.aggs or dag.group_items:
+                out.append(device_guard.guarded_dispatch(
+                    lambda: self._run_agg_partition(dag, tbl, cols, v, m,
+                                                    cap, bind_keys),
+                    site="copr/agg", ectx=ectx, domain=dom,
+                    fallback_is_host=to_host))
+                continue
+            if dag.topn is not None:
+                idx = device_guard.guarded_dispatch(
+                    lambda: self._run_topn_partition(dag, tbl, cols, v, m,
+                                                     cap, bind_keys),
+                    site="copr/topn", ectx=ectx, domain=dom,
+                    host_fallback=(lambda: self._topn_host(dag, cols, v, m))
+                    if to_host else None, fallback_is_host=to_host)
+                out.append(self._gather_chunk(dag, cols, idx))
+                continue
+            mask = device_guard.guarded_dispatch(
+                lambda: self._run_filter_partition(dag, tbl, cols, v, m,
+                                                   cap, bind_keys),
+                site="copr/filter", ectx=ectx, domain=dom,
+                fallback_is_host=to_host)
+            idx = np.nonzero(mask[:m])[0]
+            if dag.limit >= 0:
+                remain = dag.limit - produced
+                if remain <= 0:
+                    break
+                idx = idx[:remain]
+            produced += len(idx)
+            out.append(self._gather_chunk(dag, cols, idx))
+            if 0 <= dag.limit <= produced:
+                break
+        return out
+
+    @staticmethod
+    def _gather_chunk(dag, cols, idx):
+        """The partition's rows at host indexes `idx`, in dag.cols order."""
+        chunk_cols = []
+        for sc in dag.cols:
+            data, nulls, sdict = cols[sc.col.idx]
+            chunk_cols.append(Column(
+                sc.col.ft, data[idx],
+                None if nulls is None else nulls[idx], sdict))
+        return Chunk(chunk_cols)
+
+    def _fragment(self, dag, tbl, kind, cap, extra, build):
+        """The cached fragment callable of (dag, kind, capacity, extra);
+        build() makes it on a miss."""
+        key = self._cache_key(dag, tbl, kind, cap, extra)
+        kern = self._kernel_cache.get(key)
+        if kern is None:
+            kern = self._kernel_cache.put(key, build())
+        return kern
+
+    def _device_args(self, dag, cols, v, m, cap, bind_keys):
+        """Upload one partition (resident columns, the validity mask with
+        the host-only filters ANDed in) -> the fragment's arguments."""
+        jcols, vv = self._pad_upload(cols, v, m, cap, bind_keys=bind_keys)
+        if dag.host_filters:
+            hm = self._host_filter_mask(dag, cols, m)
+            hmp = np.concatenate([hm, np.zeros(cap - m, dtype=bool)]) \
+                if m != cap else hm
+            vv = vv & self.xp.asarray(hmp)
+        return {k: (d, nl) for k, (d, nl, _) in jcols.items()}, vv
+
+    @staticmethod
+    def _host_filter_mask(dag, cols, m):
+        """AND of the DAG's host-only filters over the partition."""
+        ctx = EvalCtx(np, m, cols, host=True)
+        hm = np.ones(m, dtype=bool)
+        for f in dag.host_filters:
+            hm &= np.asarray(eval_bool_mask(ctx, f))
+        return hm
+
+    def _run_filter_partition(self, dag, tbl, cols, v, m, cap,
+                              bind_keys=None):
+        """The partition's validity mask (host-only filters ANDed in)
+        ANDed with each filter's three-valued mask on the device,
+        fetched with one sync."""
+        sdicts = {k: c[2] for k, c in cols.items()}
+        kern = self._fragment(dag, tbl, "filter", cap, (), lambda:
+                              _reader_fragment(dag.filters, sdicts, cap,
+                                               self.xp, lambda c, m: m))
+        jc, vv = self._device_args(dag, cols, v, m, cap, bind_keys)
+        return host_array(prefetch(run_fragment(kern, jc, vv)))
+
+    def _run_topn_partition(self, dag, tbl, cols, v, m, cap,
+                            bind_keys=None):
+        """Fused filter + device top-k over the single sort key; returns
+        host indices of the top rows (<= k) in key order, ties by row.
+        On the CPU the host twin _topn_host runs instead, as on the
+        reference's CPU backend."""
+        (expr, desc), k = dag.topn
+        if self.device.type != "cuda":
+            return self._topn_host(dag, cols, v, m)
+        sdicts = {kk: c[2] for kk, c in cols.items()}
+        kern = self._fragment(
+            dag, tbl, "topn", cap, (expr.fingerprint(), desc, k),
+            lambda: _reader_fragment(
+                dag.filters, sdicts, cap, self.xp, lambda ctx, mask:
+                topn_body(ctx, mask, expr, desc, k, cap)))
+        jc, vv = self._device_args(dag, cols, v, m, cap, bind_keys)
+        top_idx, cnt = prefetch(run_fragment(kern, jc, vv))
+        return host_array(top_idx)[:host_int(cnt)]
+
+    def _topn_host(self, dag, cols, v, m):
+        """Host twin of the top-n fragment: the first k filtered rows by
+        (NULL rank, key, row index) — NULLs first ascending, last
+        descending, ties by the lowest row index, as topn_body orders
+        them."""
+        (expr, desc), k = dag.topn
+        ctx = EvalCtx(np, m, cols, host=True)
+        mask = v[:m].copy()
+        for f in dag.filters + dag.host_filters:
+            mask &= np.asarray(eval_bool_mask(ctx, f))
+        idx = np.nonzero(mask)[0]
+        if len(idx) == 0 or k <= 0:
+            return np.empty(0, dtype=np.int64)
+        d, nl, sd = eval_expr(ctx, expr)
+        if np.isscalar(d):
+            d = np.full(m, d)
+        d = np.asarray(d)
+        nm = np.asarray(materialize_nulls(ctx, nl))
+        if np.ndim(nm) == 0:
+            nm = np.full(m, bool(nm))
+        if sd is not None:
+            d = sd.ranks()[d]
+        skey, rank = _topn_keys_np(d[idx], nm[idx], desc)
+        first = rank == 0
+        sel = []
+        for part in (np.nonzero(first)[0], np.nonzero(~first)[0]):
+            want = min(k, len(idx)) - sum(len(x) for x in sel)
+            if want <= 0:
+                break
+            sel.append(part[_smallest_k_stable(skey[part], want)])
+        return idx[np.concatenate(sel)]
+
+    def _run_agg_partition(self, dag, tbl, cols, v, m, cap, bind_keys=None,
+                           group_bucket=1024):
+        """Device partial aggregation -> PartialAggResult: the dense
+        layout (dense_agg_body; on the card only up to _BCR_MAX slots
+        while the lowering is runs) or the sort kind (sort_agg_body),
+        with its bucket regrow and runs->sorted pin (learn_sort_kind)."""
+        gbkey = ("gb", tbl.uid,
+                 tuple(g.fingerprint() for g in dag.group_items),
+                 tuple(a.fingerprint() for a in dag.aggs))
+        implk = ("aggimpl", tbl.gc_epoch) + gbkey
+        kd, sd = capture_agg_dicts(dag, cols)
+        # dense layout: group keys span a small combined domain (dict
+        # codes, or int keys after a host min/max pass over the rows)
+        strides = _dense_strides(dag, kd, cols, m)
+        sdicts = {k: c[2] for k, c in cols.items()}
+        dom = getattr(self, "domain", None)
+        while True:
+            bucket = max(group_bucket, self._host_cache.get(gbkey, 0))
+            impl = self._host_cache.get(implk) or \
+                _segment_impl(self.device)
+            sizes = strides
+            if sizes is not None and impl == "runs" and \
+                    _dense_nslots(sizes) > _BCR_MAX:
+                # the reference's device rule: no scatter into a big
+                # dense domain while the lowering is runs
+                sizes = None
+            # the tails bind this pass's layout: a cached fragment must
+            # not see a later pass's bucket or lowering
+            groups, aggs = list(dag.group_items), list(dag.aggs)
+            if sizes is not None:
+                kern = self._fragment(
+                    dag, tbl, "dagg", cap, tuple(sizes),
+                    lambda: _reader_fragment(
+                        dag.filters, sdicts, cap, self.xp,
+                        lambda ctx, mask, s=sizes: dense_agg_body(
+                            ctx, mask, groups, aggs, s, cap)))
+            else:
+                kern = self._fragment(
+                    dag, tbl, "agg", cap, (bucket, impl),
+                    lambda: _reader_fragment(
+                        dag.filters, sdicts, cap, self.xp,
+                        lambda ctx, mask, b=bucket, i=impl: sort_agg_body(
+                            ctx, mask, groups, aggs, cap, b, impl=i)))
+            jc, vv = self._device_args(dag, cols, v, m, cap, bind_keys)
+            res = prefetch(run_fragment(kern, jc, vv))
+            if sizes is not None:
+                return _compact_dense(dag, res, sizes, kd, sd)
+            ngroups = host_int(res["ngroups"])
+            rerun = learn_sort_kind(self._host_cache, gbkey, implk, impl,
+                                    bucket, ngroups, m)
+            if rerun is not None:
+                if dom is not None:
+                    dom.inc_metric("copr_" + rerun)
+                continue
+            return PartialAggResult(
+                ngroups=ngroups,
+                keys=[host_array(k)[:ngroups] for k in res["keys"]],
+                key_nulls=[host_array(kn)[:ngroups]
+                           for kn in res["key_nulls"]],
+                states=[[host_array(s)[:ngroups] for s in st]
+                        for st in res["states"]],
+                key_dicts=kd, state_dicts=sd)
+
     def _pad_upload(self, cols, v, m, cap, bind_keys=None):
         jcols = {}
         if bind_keys is None:
@@ -531,6 +818,148 @@ class PartialAggResult:
         self.states = states
         self.key_dicts = key_dicts or [None] * len(keys)
         self.state_dicts = state_dicts or [None] * len(states)
+
+
+def run_fragment(kern, *args):
+    """Enqueue one fragment call on the device: the seam around the
+    fragment alone (not its uploads nor its fetch) that every reader-DAG
+    and fused fragment goes through, which chip_smoke.py runs under
+    torch.cuda.set_sync_debug_mode("error") to show that no fragment
+    waits on the card."""
+    return kern(*args)
+
+
+def _device_dtype_ok(dtype) -> bool:
+    """Does a storage dtype have a device form (not object, not uint64)?"""
+    try:
+        torch_dtype(dtype)
+    except TypeError:
+        return False
+    return True
+
+
+def _dag_device_ready(dag, arrays) -> bool:
+    """Can the DAG's fragment run on the device: every expression it
+    evaluates there is device-safe (vec.is_device_safe) and uses only
+    the evaluator ops whose torch forms are checked (TORCH_OPS), and
+    every column it binds has a device dtype."""
+    exprs = [sc.col for sc in dag.cols] + list(dag.filters) + \
+        list(dag.group_items)
+    for a in dag.aggs:
+        exprs.extend(a.args)
+    if dag.topn is not None:
+        exprs.append(dag.topn[0][0])
+    if not all(_vec.is_device_safe(e) for e in exprs):
+        return False
+    used = set()
+    for e in exprs:
+        ops_of(e, used)
+    if not used <= TORCH_OPS:
+        return False
+    for data, _nulls, _sd in arrays.values():
+        if not _device_dtype_ok(data.dtype):
+            return False
+    return True
+
+
+def _reader_fragment(filters, sdicts, cap, xp, tail):
+    """A reader-DAG fragment (the reference's _filter_body, _topn_body
+    and _build_*agg_kernel): the validity mask ANDed with each filter's
+    mask over the partition's columns, then tail(ctx, mask), which
+    returns the fragment's result: the mask itself, a top-n or the
+    partial aggregation."""
+    filters = list(filters)
+
+    def body(jc, vv):
+        full = {k: (d, nl, sdicts[k]) for k, (d, nl) in jc.items()}
+        ctx = EvalCtx(xp, cap, full, host=False)
+        mask = vv
+        for f in filters:
+            mask = mask & eval_bool_mask(ctx, f)
+        return tail(ctx, mask)
+    return body
+
+
+def _topn_keys_np(d, nm, desc):
+    """-> (sort key, rank) for a top-n over values `d` with NULL mask
+    `nm`: ascending order of (rank, key) is the top-n order. The key is
+    the value ascending, its bitwise complement (ints: never overflows,
+    unlike a negation of INT64_MIN) or negation (floats) descending,
+    0 for NULLs; rank 0 is the side NULLs do not take (NULL sorts
+    lowest: first ascending, last descending)."""
+    if d.dtype.kind == "f":
+        skey = -d if desc else d.copy()
+        skey = np.where(nm, 0.0, skey)
+    else:
+        d = d.astype(np.int64)
+        skey = np.where(nm, 0, ~d if desc else d)
+    rank = nm.astype(np.int8) if desc else (~nm).astype(np.int8)
+    return skey, rank
+
+
+def _smallest_k_stable(s, k):
+    """Indexes of the k smallest of `s` in ascending order, ties by
+    the lowest index: a partition to the k-th value, then the rows below
+    it and the first of those equal to it."""
+    if k >= len(s):
+        return np.argsort(s, kind="stable")
+    kth = np.partition(s, k - 1)[k - 1]
+    below = np.nonzero(s < kth)[0]
+    sel = np.concatenate([below, np.nonzero(s == kth)[0][:k - len(below)]])
+    sel.sort()
+    return sel[np.argsort(s[sel], kind="stable")]
+
+
+def topn_body(ctx, mask, expr, desc, k, cap):
+    """Top-k of the rows under `mask` by `expr` over an eval ctx (the
+    torch body of the reference's _topn_body): dictionary codes ranked
+    by their strings, NULLs first ascending and last descending, ties by
+    the lowest row index (torch.topk promises no tie order, so the
+    order is three stable sorts: key, NULL rank, mask). -> (the first
+    min(k, cap) row indexes in that order, min(rows under mask, k))."""
+    dev = mask.device
+    d, nl, sd = eval_expr(ctx, expr)
+    if np.isscalar(d) or getattr(d, "ndim", 1) == 0:
+        d = ctx.xp.full(cap, d)
+    nm = materialize_nulls(ctx, nl)
+    if not isinstance(nm, torch.Tensor) or nm.ndim == 0:
+        nm = torch.full((cap,), bool(nm), dtype=torch.bool, device=dev)
+    if sd is not None:
+        ranks = _vec._dict_cached(ctx, sd, ("ranks",), lambda: (
+            ctx.xp.asarray(np.asarray(sd.ranks(), dtype=np.int64)),
+            8 * len(sd.values)))
+        d = ranks[d.to(INT64)]
+    if d.dtype.is_floating_point:
+        skey = torch.where(nm, 0.0, -d if desc else d)
+    else:
+        d = d.to(INT64)
+        skey = torch.where(nm, 0, torch.bitwise_not(d) if desc else d)
+    rank = nm if desc else ~nm
+    order = torch.sort(skey, stable=True).indices
+    order = order[torch.sort(rank[order].to(torch.int8),
+                             stable=True).indices]
+    order = order[torch.sort((~mask[order]).to(torch.int8),
+                             stable=True).indices]
+    cnt = torch.clamp(mask.sum(dtype=INT64), max=k)
+    return order[:min(k, cap)], cnt
+
+
+def learn_sort_kind(host_cache, gbkey, implk, impl, bucket, ngroups, rows):
+    """What a sort-kind aggregation learns from a partition's group
+    count, shared by the fused and reader-DAG fragments: a runs lowering
+    over more than max(_RUNS_DEGRADE_MIN, rows / 4) partials meets keys
+    storage order does not cluster, and pins the query shape to sorted;
+    more groups than the bucket it ran with regrow the bucket, which
+    never shrinks. -> "runs_degrade" or "bucket_regrow" when the
+    partition must run again, else None."""
+    if impl == "runs" and ngroups > max(_RUNS_DEGRADE_MIN, rows // 4):
+        host_cache[implk] = "sorted"
+        return "runs_degrade"
+    if ngroups > bucket:
+        host_cache[gbkey] = max(host_cache.get(gbkey, 0),
+                                shape_bucket(ngroups))
+        return "bucket_regrow"
+    return None
 
 
 def capture_agg_dicts(dag, cols):
@@ -1239,7 +1668,13 @@ def _host_partial_agg(ctx, dag, valid, shared_dicts=None):
     idx = np.nonzero(mask)[0]
     starts = None       # run starts when keys arrive pre-sorted
     if keys:
-        kvecs = [np.where(kn, -1, k)[idx] for k, kn in zip(keys, key_nulls)]
+        # a NULL key sorts by its flag, not by a sentinel value that a
+        # real key can hold (the reference's -1 merged NULL with -1)
+        kvecs = []
+        for k, kn in zip(keys, key_nulls):
+            kvecs.append(k[idx])
+            if kn[idx].any():
+                kvecs.append(kn[idx].astype(np.int64))
         starts, _change = sorted_run_starts(kvecs)
         if starts is not None:
             # pre-sorted single key (clustered-PK order, e.g. GROUP BY

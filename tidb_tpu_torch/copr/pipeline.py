@@ -49,10 +49,17 @@ fragment returns, at least 1024, regrown when ngroups exceeds it), the
 compact capacity (_compact_policy), and a pin from runs to sorted when
 the runs are not clustered (ngroups > max(_RUNS_DEGRADE_MIN, rows / 4)).
 
-Not yet ported, each declined before dispatch with last_fused_reason
-"not yet ported: ..." so the executor takes its counted host path:
-materialized (subplan) dims (Q13, Q17, Q21) and device ops outside
-TORCH_OPS. The reference's one-hot aggregation, its device top-N
+A dim may be materialized: the result of a subplan (Q13's per-customer
+order counts, Q17's per-part average quantity, Q21's per-order supplier
+counts), run through the executor, shaped like a dim table keyed by
+output position and probed like one (_materialized_dim_meta). Its
+result is cached across statements in a byte-bounded LRU, valid while
+its base tables are unchanged, so a warm statement runs no subplan and
+uploads nothing.
+
+Not yet ported, declined before dispatch with last_fused_reason "not yet
+ported: ..." so the executor takes its counted host path: device ops
+outside TORCH_OPS. The reference's one-hot aggregation, its device top-N
 candidate selection and its early compaction of fact-filter survivors
 (ecap) are learned speed-ups that give the same rows and are not ported
 either. The MPP mesh path is not ported (one card).
@@ -60,6 +67,8 @@ either. The MPP mesh path is not ported (one card).
 from __future__ import annotations
 
 import re
+import threading
+from collections import OrderedDict
 
 import numpy as np
 
@@ -263,6 +272,186 @@ def _compact_policy(copr, compk, ccap, nvalid, denom):
         else:
             copr._host_cache[compk] = "off"
     return None
+
+
+_MATDIM_MAX_BYTES = 1 << 29     # 512MB of cached subquery results
+
+
+def _matdim_cache(copr):
+    """Per-copr LRU for materialized-dim results, byte-bounded — unlike
+    the metadata entries in _host_cache, these hold full result arrays
+    (the device pool analog: _dev_put charges a device-memory budget)."""
+    c = getattr(copr, "_matdim_lru", None)
+    if c is None:
+        c = copr._matdim_lru = OrderedDict()
+        copr._matdim_bytes = 0
+    return c
+
+
+def _matdim_nbytes(out):
+    total = 0
+    for d, nl, _sd in out["arrays"].values():
+        total += getattr(d, "nbytes", 0)
+        total += getattr(nl, "nbytes", 0) if nl is not None else 0
+    for k in ("lut", "order", "skeys"):
+        if k in out:
+            total += getattr(out[k], "nbytes", 0)
+    return total
+
+
+def _matdim_drop(copr, out):
+    """Release a materialization that left the cache: its device
+    uploads are keyed by its own uid, which nothing reads again."""
+    copr._dev_store.invalidate(out["tbl"].uid)
+
+
+_MAT_SEQ = [0]
+_MAT_SEQ_MU = threading.Lock()  # materializations on any conn thread
+# the matdim LRUs: statements on connection threads look up and fill
+# them at once (the subplan runs outside the lock)
+_MATDIM_MU = threading.Lock()
+
+
+class _MatTbl:
+    """Shim standing in for a ColumnarTable for materialized dims: only
+    the attributes the upload/caching paths read. A fresh uid per
+    materialization means device uploads never alias across results,
+    and its arrays never change under that uid."""
+
+    __slots__ = ("uid", "version", "n", "dicts")
+
+    def __init__(self, n):
+        with _MAT_SEQ_MU:
+            _MAT_SEQ[0] += 1
+            self.uid = ("mat", _MAT_SEQ[0])
+        self.version = 0
+        self.n = n
+        self.dicts = {}
+
+
+def _materialized_dim_meta(copr, ctx, dim, read_ts):
+    """Execute dim.subplan (Q17's decorrelated per-key aggregate, Q13's
+    per-customer counts, Q21's per-order supplier counts) and shape its
+    output like a dim table: arrays keyed by output POSITION, every row
+    valid, group keys unique by construction (still verified). -> meta
+    dict or None.
+
+    The result is cached across statements under the subplan's
+    structural fingerprint, the session's time zone and sql mode, valid
+    while its base tables keep their (uid, version) and no row was
+    committed after either snapshot (max_commit_ts <= both read_ts): a
+    warm statement's subplan is a dict hit (domain metric
+    fused_matdim_hit) and does not run. A session with a dirty
+    transaction can see uncommitted rows through the subplan's scans
+    without bumping any table version, so it neither reads nor fills
+    the cache."""
+    if ctx is None:
+        _set_reason(copr, "materialized dim: no execution context")
+        return None
+    dom = getattr(copr, "domain", None)
+    txn = getattr(getattr(ctx, "sess", None), "_txn", None)
+    dirty = txn is not None and not txn.committed and not txn.aborted \
+        and txn.is_dirty()
+    ck = base = None
+    fp = None if dirty else _plan_fp(dim.subplan)
+    if fp is not None and not _VOLATILE_RE.search(fp):
+        base = _plan_base_tables(copr.engine, dim.subplan)
+    if base:
+        try:
+            tz = (str(ctx.sv.get("time_zone")), str(ctx.sv.get("sql_mode")))
+        except Exception:               # noqa: BLE001
+            tz = ()
+        ck = ("matdim", fp, tz)
+        vers = tuple((t.uid, t.version) for t in base)
+        maxts = max(t.max_commit_ts for t in base)
+        with _MATDIM_MU:
+            lru = _matdim_cache(copr)
+            ent = lru.get(ck)
+            # read_ts None = latest snapshot (sees every committed row)
+            hit = ent is not None and ent[0] == vers and \
+                (ent[1] is None or maxts <= ent[1]) and \
+                (read_ts is None or maxts <= read_ts)
+            if hit:
+                lru.move_to_end(ck)
+        if hit:
+            if dom is not None:
+                dom.inc_metric("fused_matdim_hit")
+            return ent[2]
+    from ..executor.builder import build_executor
+    ex = build_executor(ctx, dim.subplan)
+    ex.open()
+    chunks = ex.all_chunks()
+    ex.close()
+    if dom is not None:
+        dom.inc_metric("fused_matdim_build")
+    ncols = len(dim.dag.cols)
+    n = sum(len(ch) for ch in chunks)
+    if n == 0:
+        _set_reason(copr, "materialized dim: subplan produced no rows")
+        return None                   # caller's empty-dim handling differs
+    arrays = {}
+    for i in range(ncols):
+        parts = [ch.columns[i] for ch in chunks]
+        data = np.concatenate([np.asarray(p.data) for p in parts])
+        if data.dtype.kind not in "iufb":
+            _set_reason(copr, "materialized dim: non-numeric column")
+            return None               # object arrays have no device form
+        sdicts = {id(p.dict) for p in parts if p.dict is not None}
+        if len(sdicts) > 1:
+            _set_reason(copr, "materialized dim: inconsistent dicts")
+            return None               # inconsistent dicts across chunks
+        sdict = next((p.dict for p in parts if p.dict is not None), None)
+        nulls = None
+        if any(p.nulls is not None for p in parts):
+            nulls = np.concatenate(
+                [p.nulls if p.nulls is not None
+                 else np.zeros(len(p), dtype=bool) for p in parts])
+        arrays[i] = (data, nulls, sdict)
+    key_cids = [_cid_of(dim.dag, sc) for sc, _ in dim.all_keys()]
+    if any(cid == -1 for cid in key_cids):
+        _set_reason(copr, "materialized dim: join key not in output")
+        return None
+    for cid in key_cids:
+        kdata, _kn, ksdict = arrays[cid]
+        if ksdict is not None or kdata.dtype.kind == "f":
+            _set_reason(copr, "materialized dim: non-int64 join key")
+            return None
+    valid = np.ones(n, dtype=bool)
+    vidx = np.arange(n)
+    keys_v, pack = _packed_keys(arrays, key_cids, n, vidx)
+    if keys_v is None or len(np.unique(keys_v)) != n:
+        _set_reason(copr, "materialized dim: non-unique or NULL keys")
+        return None
+    lo = int(keys_v.min())
+    span = int(keys_v.max()) - lo + 1
+    out = {"arrays": arrays, "valid": valid, "n": n, "tbl": _MatTbl(n),
+           "pack": pack}
+    if span <= max(4 * n, 1 << 12) and span <= _DIRECT_SPAN_BUDGET:
+        lut = np.full(span, n, dtype=np.int64)
+        lut[keys_v - lo] = vidx
+        out.update(mode="direct", lo=lo, lut=lut, n_sorted=n)
+    else:
+        o = np.argsort(keys_v, kind="stable")
+        out.update(mode="sorted", lo=None, order=vidx[o],
+                   skeys=keys_v[o], n_sorted=n)
+    if ck is not None:
+        nb = _matdim_nbytes(out)
+        dropped = []
+        with _MATDIM_MU:
+            lru = _matdim_cache(copr)
+            old = lru.pop(ck, None)
+            if old is not None:
+                copr._matdim_bytes -= old[3]
+                dropped.append(old[2])
+            lru[ck] = (vers, read_ts, out, nb)
+            copr._matdim_bytes += nb
+            while copr._matdim_bytes > _MATDIM_MAX_BYTES and len(lru) > 1:
+                _k, (_v, _t, evicted, onb) = lru.popitem(last=False)
+                copr._matdim_bytes -= onb
+                dropped.append(evicted)
+        for gone in dropped:
+            _matdim_drop(copr, gone)
+    return out
 
 
 def _dim_sort_meta(copr, dim, tbl, read_ts):
@@ -484,13 +673,19 @@ def _upload_dim(copr, dim, meta, cap, read_ts):
     # arrays must not (they are not the table's columns)
     appendable = hasattr(tbl, "gc_epoch") and not meta.get("synthetic")
 
+    # a materialization's arrays are fixed for its uid: nothing of it
+    # varies with the snapshot ts, so a cached one uploads nothing in a
+    # later transaction either
+    ts_free = isinstance(tbl, _MatTbl)
+
     def put(tag, arr, length, acap, fill=0, ts_keyed=False):
         # plain column data depends only on the table version; only the
         # MVCC-derived arrays (valid mask, lut/sort built over the valid
         # set) vary with the snapshot ts — keying data by ts would
         # re-upload every dim column once per transaction. _dev_put
         # reads the pad capacity from key[-1]: acap stays LAST.
-        key = (tbl.uid, tag, ver, read_ts if ts_keyed else None,
+        key = (tbl.uid, tag, ver,
+               read_ts if ts_keyed and not ts_free else None,
                length) + mk + (acap,)
         return copr._dev_put(key, arr, pad_fill=fill, uid=tbl.uid,
                              version=ver)
@@ -788,13 +983,12 @@ def _make_pipeline_body(plan, fact_cap, fact_sdicts, dim_caps, dim_ns,
 
 def _decline_reason(plan):
     """-> why this plan's shape is not ported to the device yet, or None
-    when it is: table dims (no subplan), evaluator ops checked under
-    torch in the fact filters, the dims' filters and probe keys, the
-    post filters, the group items and the aggregate arguments. Every
-    group domain has a layout (dense, posdense or the sort kind,
-    chosen at run time in _fused_partials_inner)."""
-    if any(d.subplan is not None for d in plan.dims):
-        return "not yet ported: materialized (subplan) dimensions"
+    when it is: evaluator ops checked under torch in the fact filters,
+    the dims' filters and probe keys, the post filters, the group items
+    and the aggregate arguments. Every group domain has a layout (dense,
+    posdense or the sort kind, chosen at run time in
+    _fused_partials_inner). A materialized dim's subplan is checked by
+    its own operators when it runs."""
     exprs = list(plan.fact_dag.filters) + list(plan.post_filters) + \
         list(plan.group_items)
     for a in plan.aggs:
@@ -927,6 +1121,12 @@ def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
     copr._dev_store.invalidate(fact_tbl.uid, fact_tbl.version)
     dim_metas = []
     for dim in plan.dims:
+        if dim.subplan is not None:
+            meta = _materialized_dim_meta(copr, ctx, dim, read_ts)
+            if meta is None:
+                return None
+            dim_metas.append(meta)
+            continue
         tbl = engine.table(dim.dag.table_info)
         copr.delta.refresh(tbl, ctx)
         copr._dev_store.invalidate(tbl.uid, tbl.version)
@@ -1138,22 +1338,17 @@ def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
                 state = _relearn("fused_compact_regrow", cols, v, m,
                                  bind_keys)
                 continue
-            if agg_param[1] == "runs" and \
-                    ngroups > max(_de._RUNS_DEGRADE_MIN, m // 4):
-                # unclustered group keys: pin this query shape to the
-                # sorted lowering before learning an inflated bucket.
-                # A rule on the shape of the data, not a fallback
-                copr._host_cache[implk] = "sorted"
-                state = _relearn("fused_runs_degrade", cols, v, m,
-                                 bind_keys)
-                continue
-            if ngroups > agg_param[0]:
-                # compare with the bucket THIS fragment ran with: an
-                # overflowed run dropped groups and must run again
-                group_bucket = max(group_bucket, shape_bucket(ngroups))
-                copr._host_cache[gbkey] = group_bucket
-                state = _relearn("fused_bucket_regrow", cols, v, m,
-                                 bind_keys)
+            # unclustered group keys pin this query shape to the sorted
+            # lowering before an inflated bucket is learned; more groups
+            # than the bucket THIS fragment ran with dropped groups. A
+            # rule on the shape of the data, not a fallback
+            rerun = _de.learn_sort_kind(copr._host_cache, gbkey, implk,
+                                        agg_param[1], agg_param[0],
+                                        ngroups, m)
+            if rerun is not None:
+                group_bucket = max(group_bucket,
+                                   copr._host_cache.get(gbkey, 0))
+                state = _relearn("fused_" + rerun, cols, v, m, bind_keys)
                 continue
             return PartialAggResult(
                 ngroups=ngroups,
@@ -1180,11 +1375,11 @@ def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
 
 
 def run_fragment(kern, fjc, fvv, dargs):
-    """Enqueue one fragment call on the card: the seam around the
-    fragment alone (not its uploads or its fetch), which chip_smoke.py
-    runs under torch.cuda.set_sync_debug_mode("error") to show that the
-    fragment never waits on the card."""
-    return kern(fjc, fvv, dargs)
+    """Enqueue one fused fragment call: through dag_exec.run_fragment,
+    the seam every device fragment takes (not its uploads nor its
+    fetch), which chip_smoke.py runs under
+    torch.cuda.set_sync_debug_mode("error")."""
+    return _de.run_fragment(kern, fjc, fvv, dargs)
 
 
 def _fused_cache_key(plan, fact_tbl, cap, agg_kind, agg_param):

@@ -51,6 +51,11 @@ TORCH_OPS = frozenset({
     # table over the dictionary gathered by code (like, substring, IN of
     # strings), numbers as compares (IN), CASE as nested wheres
     "in", "case_when", "like", "substring",
+    # NULL-replacing conditionals (Q13's and Q21's LEFT materialized
+    # dims probe to ifnull(count, 0)): wheres over the NULL masks
+    "if", "ifnull", "coalesce",
+    # the planner's rank recode around MIN/MAX of a string: a gather
+    "_minmaxkey",
 })
 
 

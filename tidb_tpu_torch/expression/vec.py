@@ -24,6 +24,9 @@ Kleene, filters treat NULL as false (eval_bool_mask).
 from __future__ import annotations
 
 import re
+import threading
+import weakref
+from collections import OrderedDict
 
 import numpy as np
 
@@ -284,23 +287,77 @@ def _is_string_val(val, expr):
         (hasattr(data, "dtype") and data.dtype == object)
 
 
-def _dict_table(ctx, sdict: StringDict, fn, dtype):
-    """Host-compute fn over dictionary values -> lookup table (device const)."""
-    vals = sdict.values
-    tbl = np.empty(max(len(vals), 1), dtype=dtype)
-    for i, s in enumerate(vals):
-        tbl[i] = fn(s)
-    return ctx.xp.asarray(tbl) if not ctx.host else tbl
+# The host tables of a string op over a dictionary (a LIKE's match per
+# value, a compare with a literal, SUBSTRING's code mapping and output
+# dictionary) cost a Python loop over every value: 200,000 part names
+# for Q9's LIKE. They are cached across statements under an explicit key
+# from the caller (the op and its literal arguments: `fn` is a fresh
+# closure at every call) with the dictionary's identity and length (a
+# dictionary only grows, so a grown one misses; a weak reference keeps
+# a new dictionary at a freed one's address from matching), the dtype
+# and the device. Bounded by bytes, least recently used first out.
+_DICT_TABLE_MAX_BYTES = 1 << 28
+_DICT_TABLES: "OrderedDict" = OrderedDict()
+_DICT_TABLE_MU = threading.Lock()
+# builds / hits / bytes held, read by the tests and the profiler
+DICT_TABLE_STATS = {"builds": 0, "hits": 0, "bytes": 0}
 
 
-def _dict_transform(ctx, codes, nulls, sdict, fn):
+def _dict_cached(ctx, sdict, key, build):
+    """build() -> (value, host bytes it holds), served from the cache
+    when `key` (the op and its literal arguments) is not None."""
+    if key is None:
+        return build()[0]
+    ck = (id(sdict), len(sdict.values), key,
+          "host" if ctx.host else str(getattr(ctx.xp, "device", "host")))
+    with _DICT_TABLE_MU:
+        ent = _DICT_TABLES.get(ck)
+        if ent is not None and ent[0]() is sdict:
+            _DICT_TABLES.move_to_end(ck)
+            DICT_TABLE_STATS["hits"] += 1
+            return ent[1]
+    val, nb = build()
+    with _DICT_TABLE_MU:
+        DICT_TABLE_STATS["builds"] += 1
+        old = _DICT_TABLES.pop(ck, None)
+        if old is not None:
+            DICT_TABLE_STATS["bytes"] -= old[2]
+        _DICT_TABLES[ck] = (weakref.ref(sdict), val, nb)
+        DICT_TABLE_STATS["bytes"] += nb
+        while DICT_TABLE_STATS["bytes"] > _DICT_TABLE_MAX_BYTES and \
+                len(_DICT_TABLES) > 1:
+            _k, (_r, _v, onb) = _DICT_TABLES.popitem(last=False)
+            DICT_TABLE_STATS["bytes"] -= onb
+    return val
+
+
+def _dict_table(ctx, sdict: StringDict, fn, dtype, key=None):
+    """Host-compute fn over dictionary values -> lookup table (device
+    const); cached under `key` (_dict_cached) when the caller gives one."""
+    def build():
+        vals = sdict.values
+        tbl = np.empty(max(len(vals), 1), dtype=dtype)
+        for i, s in enumerate(vals):
+            tbl[i] = fn(s)
+        return (ctx.xp.asarray(tbl) if not ctx.host else tbl), tbl.nbytes
+    return _dict_cached(ctx, sdict, None if key is None else
+                        ("table", np.dtype(dtype).str) + key, build)
+
+
+def _dict_transform(ctx, codes, nulls, sdict, fn, key=None):
     """String->string function over a dict column: build output dict on host,
-    gather mapping on device. Equal outputs share one code (grouping-safe)."""
-    out_dict = StringDict()
-    mapping = np.empty(max(len(sdict.values), 1), dtype=np.int32)
-    for i, s in enumerate(sdict.values):
-        mapping[i] = out_dict.encode_one(fn(s))
-    mtab = ctx.xp.asarray(mapping) if not ctx.host else mapping
+    gather mapping on device. Equal outputs share one code (grouping-safe).
+    Cached under `key` (_dict_cached) when the caller gives one."""
+    def build():
+        out_dict = StringDict()
+        mapping = np.empty(max(len(sdict.values), 1), dtype=np.int32)
+        for i, s in enumerate(sdict.values):
+            mapping[i] = out_dict.encode_one(fn(s))
+        mtab = ctx.xp.asarray(mapping) if not ctx.host else mapping
+        # the output strings: about 64 bytes each in a list and an index
+        return (mtab, out_dict), mapping.nbytes + 64 * len(out_dict.values)
+    mtab, out_dict = _dict_cached(ctx, sdict, None if key is None else
+                                  ("transform",) + key, build)
     return mtab[codes], nulls, out_dict
 
 
@@ -311,10 +368,13 @@ def _string_elementwise(ctx, data, fn, dtype=object):
     return out
 
 
-def _apply_str_fn(ctx, val, fn, out_is_string=True, out_dtype=None):
+def _apply_str_fn(ctx, val, fn, out_is_string=True, out_dtype=None,
+                  key=None):
     """Apply python str->x over a string value (dict column, object array,
     or scalar). out_dtype picks the non-string result dtype (int64
-    default; float fns MUST pass float64 or values truncate)."""
+    default; float fns MUST pass float64 or values truncate). `key`
+    names fn by the op and its literal arguments, so the dictionary
+    table it builds is cached (_dict_cached)."""
     data, nulls, sdict = val
     if out_dtype is None:
         out_dtype = np.int64
@@ -323,8 +383,8 @@ def _apply_str_fn(ctx, val, fn, out_is_string=True, out_dtype=None):
         return (r, nulls, None)
     if sdict is not None:
         if out_is_string:
-            return _dict_transform(ctx, data, nulls, sdict, fn)
-        tbl = _dict_table(ctx, sdict, fn, out_dtype)
+            return _dict_transform(ctx, data, nulls, sdict, fn, key=key)
+        tbl = _dict_table(ctx, sdict, fn, out_dtype, key=key)
         return tbl[data], nulls, None
     # host object array
     if out_is_string:
@@ -595,17 +655,20 @@ def _cmp_strings(ctx, expr, op_name, aval, bval):
         if isinstance(a, str) and isinstance(b, str):
             return (_cmp_core(xp, op_name, fold(a), fold(b)),
                     or_nulls(xp, an, bn), None)
+        fkey = (ci, nopad, cn if ci else None)
         if isinstance(b, str) and ad is not None:
             tbl = _dict_table(ctx, ad,
                               lambda s: _cmp_core(np, op_name, fold(s),
-                                                  fold(b)), np.bool_)
+                                                  fold(b)), np.bool_,
+                              key=("cmp_fold", op_name, b) + fkey)
             return tbl[a], or_nulls(xp, an, bn), None
         if isinstance(a, str) and bd is not None:
             flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}
+            fop = flip.get(op_name, op_name)
             tbl = _dict_table(ctx, bd,
-                              lambda s: _cmp_core(
-                                  np, flip.get(op_name, op_name),
-                                  fold(s), fold(a)), np.bool_)
+                              lambda s: _cmp_core(np, fop, fold(s),
+                                                  fold(a)), np.bool_,
+                              key=("cmp_fold", fop, a) + fkey)
             return tbl[b], or_nulls(xp, an, bn), None
         if ad is not None and bd is not None:
             merged = StringDict()
@@ -631,7 +694,7 @@ def _cmp_strings(ctx, expr, op_name, aval, bval):
                 r = _cmp_core(xp, op_name, a, code)
                 return r, or_nulls(xp, an, bn), None
             tbl = _dict_table(ctx, ad, lambda s: _cmp_core(np, op_name, s, b),
-                              np.bool_)
+                              np.bool_, key=("cmp", op_name, b))
             return tbl[a], or_nulls(xp, an, bn), None
         fb = fold(b) if fold else b
         r = _string_elementwise(
@@ -718,7 +781,8 @@ def _truthy(ctx, val, ft):
         except ValueError:
             data = 0.0
     if sdict is not None:
-        tbl = _dict_table(ctx, sdict, _str_truthy, np.bool_)
+        tbl = _dict_table(ctx, sdict, _str_truthy, np.bool_,
+                          key=("truthy",))
         return tbl[data], nulls
     if hasattr(data, "dtype") and data.dtype == object:
         return _string_elementwise(ctx, data, _str_truthy, np.bool_), nulls
@@ -1089,7 +1153,7 @@ def op_like(ctx, expr):
     flags = re.DOTALL | (re.IGNORECASE if _is_ci(expr.args[0].ft) else 0)
     rx = re.compile(like_to_regex(pat, esc), flags)
     return _apply_str_fn(ctx, av, lambda s: rx.match(s) is not None,
-                         out_is_string=False)
+                         out_is_string=False, key=("like", pat, esc, flags))
 
 
 @op("regexp")
@@ -1100,7 +1164,7 @@ def op_regexp(ctx, expr):
         raise UnknownFunctionError("non-constant REGEXP pattern unsupported")
     rx = re.compile(pat)
     return _apply_str_fn(ctx, av, lambda s: rx.search(s) is not None,
-                         out_is_string=False)
+                         out_is_string=False, key=("regexp", pat))
 
 
 # ---------------- string functions ----------------
@@ -1309,7 +1373,7 @@ def op_substring(ctx, expr):
         if length is None:
             return s[st:]
         return s[st:st + max(length, 0)]
-    return _apply_str_fn(ctx, av, sub)
+    return _apply_str_fn(ctx, av, sub, key=("substring", start, length))
 
 
 @op("left")

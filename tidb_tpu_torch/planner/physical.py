@@ -1808,9 +1808,9 @@ def _orient_pipeline(plan, child, leaves, eqs, filters, owner, fact,
         # aggregate dims materialize through device fragments. The
         # card keeps an ABSOLUTE ceiling as the device-memory escape
         # hatch: dims beyond it cannot all be resident. Only
-        # aggregate-subquery dims count here, and copr/pipeline.py does
-        # not port those (materialized dims) yet: until it does, such a
-        # node declines at run time and runs its conventional subtree.
+        # aggregate-subquery dims count here: copr/pipeline.py
+        # materializes each once and keeps the result across
+        # statements while its base tables are unchanged.
         if getattr(_TLS, "device_type", "cpu") != "cuda" or \
                 dim_rows > _FUSE_DEV_DIM_MASS_ABS:
             return None
