@@ -1,29 +1,34 @@
 """Chip smoke test of tidb_tpu_torch on one CUDA card: builds the
-hand-written kernels, holds each against its plain PyTorch version,
-times them, then runs TPC-H Q6, Q1 and a global aggregate without range
+hand-written kernels, holds each against its plain PyTorch version, times
+them, then runs TPC-H Q6, Q1 and a global aggregate without range
 filters at SF1 from SQL to rows through the package's normal entry point
 (TestKit on the card), then the join queries whose fused fragments probe
 dimension tables on the card (Q3, Q4, Q5, Q10, Q12, Q14, Q19, Q22, the
 sort-kind group-bys Q2, Q7, Q8, Q9, Q11, Q15, Q16, Q18, Q20 and Q20
 without its nation predicate, and Q13, Q17 and Q21, whose materialized
-dims run their subplans once and serve later statements from a cache;
-Q3 and Q10 aggregate as runs on the card), then reader-DAG statements
-(a filter and a top-N over lineitem, per-key counts that take the runs
+dims run their subplans once and serve later statements from a cache; Q3
+and Q10 aggregate as runs on the card), then reader-DAG statements (a
+filter and a top-N over lineitem, per-key counts that take the runs
 lowering and the runs->sorted pin, dense and global group-bys of a small
-table) against their host twin, and Q6, Q1, the global aggregate, Q3
-and Q5 again through the package's MySQL wire server, with a raw-socket
-client. Every statement's rows are held to the reference package's
-committed SF1 rows (or a numpy oracle, or the host twin), and its route
-to the counters of the fused path and the reader DAGs: fragments, host
-and device scans, no decline, one dispatch and one sync per partition of
-a warm statement, no upload. Every fragment enqueue of the SQL, join and
-reader phases runs under torch.cuda.set_sync_debug_mode("error"), so a
-blocking wait on the card inside a fragment fails the run. Each kernel
-is held to its plain version on inputs built from the loaded tables and
-on edge cases, and, in one more warm statement of every TestKit query
-that launches it, on the very tensors each fragment hands its wrapper.
-Each kernel's launches are counted per path, and so are the product
-pairs Q6 folds into range_filter_sums (one per partition and statement).
+table) against their host twin, then the executor's device hooks (ORDER
+BYs over customer and orders, window functions over all of orders,
+row-returning inner, left, semi and anti hash joins between them) against
+their host twin and the reference's committed digests, and Q6, Q1, the
+global aggregate, Q3 and Q5 again through the package's MySQL wire
+server, with a raw-socket client. Every statement's rows are held to the
+reference package's committed SF1 rows (or a numpy oracle, or the host
+twin), and its route to the counters of the fused path and the reader
+DAGs: fragments, host and device scans, no decline, one dispatch and one
+sync per partition of a warm statement, no upload. Every fragment
+enqueue of the SQL, join and reader phases, and every executor hook but
+for its fetches, runs under torch.cuda.set_sync_debug_mode("error"), so
+a blocking wait on the card inside a fragment or a hook fails the run; a
+hook statement makes exactly its hooks' fetches as syncs. Each kernel is
+held to its plain version on inputs built from the loaded tables and on
+edge cases, and, in one more warm statement of every TestKit query that
+launches it, on the very tensors each fragment hands its wrapper. Each
+kernel's launches are counted per path, and so are the product pairs Q6
+folds into range_filter_sums (one per partition and statement).
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one
 CUDA device and the CUDA toolkit (nvcc), and exits non-zero, printing no
@@ -453,19 +458,37 @@ def checked_kernels(run):
     return out, calls
 
 
+# the executor's device hooks: (module, function, device_guard site)
+HOOKS = (("tidb_tpu_torch.executor.sort_device", "device_sort_permutation",
+          "sort"),
+         ("tidb_tpu_torch.executor.window_device", "run_window_device",
+          "window"),
+         ("tidb_tpu_torch.ops.device_join", "device_join_index", "join"))
+
+
 class SyncGuard:
     """Runs every fragment enqueue (copr/dag_exec.py run_fragment, the
     seam of the fused and the reader-DAG fragments: the fragment's own
     call, not its uploads nor its fetch) under
     torch.cuda.set_sync_debug_mode("error"): a blocking wait on the card
     inside a fragment raises, and its statement fails. `calls` counts
-    the enqueues it guarded. check() first shows the mode is live: a
-    tensor's .item() and a device tensor made from a Python scalar must
-    raise under it."""
+    the enqueues it guarded. Each executor hook (HOOKS) runs whole under
+    the mode, its uploads included, except the waits of its pinned
+    fetches (utils/fetch.py _Ticket.wait, each a counted sync):
+    `hook_calls` counts by site the calls that ran on the device (a
+    sort under its size floor does not), `hook_syncs` the syncs they
+    made and `hook_ms` their wall time (host clock; a hook ends in its
+    fetch). check() first shows the mode is live: a tensor's .item()
+    and a device tensor made from a Python scalar must raise under
+    it."""
 
     def __init__(self):
         self.calls = 0
+        self.hook_calls = {site: 0 for _m, _f, site in HOOKS}
+        self.hook_syncs = 0
+        self.hook_ms = 0.0
         self._orig = None
+        self._saved = []
 
     @staticmethod
     def check():
@@ -499,11 +522,50 @@ class SyncGuard:
             self.calls += 1
             return out
         dag_exec.run_fragment = guarded
+        import importlib
+        from tidb_tpu_torch.utils import fetch
+        for mod_name, fn_name, site in HOOKS:
+            mod = importlib.import_module(mod_name)
+            self._saved.append((mod, fn_name, getattr(mod, fn_name)))
+            setattr(mod, fn_name, self._hook(getattr(mod, fn_name), site))
+        wait = fetch._Ticket.wait
+        self._saved.append((fetch._Ticket, "wait", wait))
+
+        def fetch_wait(ticket):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                wait(ticket)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        fetch._Ticket.wait = fetch_wait
         return self
+
+    def _hook(self, fn, site):
+        import torch
+        from tidb_tpu_torch.utils import phase
+
+        def guarded(*args, **kw):
+            s0 = phase.current().get("syncs", 0)
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            self.hook_ms += (time.perf_counter() - t0) * 1e3
+            if out is not None:           # None: a sort under its floor
+                self.hook_calls[site] += 1
+            self.hook_syncs += phase.current().get("syncs", 0) - s0
+            return out
+        return guarded
 
     def __exit__(self, *exc):
         from tidb_tpu_torch.copr import dag_exec
         dag_exec.run_fragment = self._orig
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved = []
 
 
 def phase_kernels(parts):
@@ -676,6 +738,37 @@ JOIN_CASES = (
 )
 
 
+# the executor hooks the SQL and join statements take on the card, where
+# tidb_join_exec 'auto' sends each hash join of int64 keys outside the
+# fused fragments to the join hook: {query: (hook calls of one
+# statement by site, the syncs those calls make: 2 per inner or outer
+# join, 1 per semi or anti join)}. Every other statement of these
+# phases, and every reader statement, takes no hook; a CPU rehearsal
+# ('auto' joins on the host there) takes none.
+SQL_HOOKS = {"q2": ({"join": 5}, 10), "q15": ({"join": 1}, 2),
+             "q20": ({"join": 1}, 1), "q20_all_nations": ({"join": 1}, 2)}
+
+
+def check_hooks(label, dom, m0, guard, h0, hs0, want_calls, want_syncs):
+    """The statement called each hook want_calls[site] times (the sync
+    guard's count and the hook's own domain counter agree), degraded
+    none (no error or fallback counter rose from the snapshot m0) and
+    made want_syncs syncs inside them (h0, hs0: the guard's counts
+    before it). -> (hook calls by site, the syncs they made)."""
+    calls = {s: guard.hook_calls[s] - h0[s] for s in h0}
+    syncs = guard.hook_syncs - hs0
+    want_c = {s: want_calls.get(s, 0) for s in h0}
+    d = {c: dom.metrics.get(c, 0) - m0[c] for c in HOOK_COUNTERS}
+    want_m = {c: 0 for c in HOOK_COUNTERS}
+    want_m.update({"sort_device": want_c["sort"],
+                   "window_device": want_c["window"],
+                   "device_join": want_c["join"]})
+    if calls != want_c or d != want_m or syncs != want_syncs:
+        fail(f"{label}: hook calls {calls}, counters {d}, {syncs} syncs in "
+             f"hooks; expected {want_c}, {want_m}, {want_syncs}")
+    return calls, syncs
+
+
 def table_rows(tk, table):
     dom = tk.domain
     return dom.columnar.tables[dom.infoschema().table_by_name(
@@ -770,14 +863,15 @@ def check_route(q, run, dom, m0, c0, route):
                  " times")
 
 
-def check_phase(q, i, snap, route, guarded, cuda=True):
+def check_phase(q, i, snap, route, guarded, cuda=True, hook_syncs=0):
     """A statement's phase counters: no fused fragment fell back, the
     host ran only the route's reader DAGs, every fragment enqueue ran
     under the sync guard (`guarded` of them), and a warm run (i > 0)
     uploaded nothing (dims included) and made one dispatch and one sync
-    per fact partition of its fragments (a sync is a wait on the card:
-    `cuda` False, a CPU rehearsal, has none); a first run may rerun a
-    partition while it learns, never fewer."""
+    per fact partition of its fragments, besides the `hook_syncs` of
+    executor hooks (a sync is a wait on the card: `cuda` False, a CPU
+    rehearsal, has none); a first run may rerun a partition while it
+    learns, never fewer."""
     for c in ("device_fallbacks", "fused_fallbacks"):
         if snap.get(c, 0):
             fail(f"{q} run {i}: {c} = {snap[c]}")
@@ -790,7 +884,7 @@ def check_phase(q, i, snap, route, guarded, cuda=True):
              "the sync guard")
     if i > 0 and snap.get("upload_bytes", 0):
         fail(f"{q} warm run {i}: uploaded {snap['upload_bytes']} bytes")
-    if syncs != (disp if cuda else 0) or \
+    if syncs != (disp + hook_syncs if cuda else 0) or \
             (disp != route["dispatches"] if i > 0 else
              disp < route["dispatches"]):
         fail(f"{q} run {i}: {disp} dispatches and {syncs} syncs, expected "
@@ -844,7 +938,9 @@ def phase_sql(tk, exp, nparts, queries, guard):
     fragment enqueue under the sync guard; rows == the committed
     reference rows or the numpy oracle (sql_and_rows), the route of
     route_of, warm statements upload nothing (dims included) and make
-    one dispatch and one sync per partition. -> {query: warm median
+    one dispatch and one sync per partition besides the syncs of the
+    executor hooks SQL_HOOKS names for the query (check_hooks: exactly
+    those calls and syncs, no other hook). -> {query: warm median
     ms}."""
     from collections import Counter
     from tidb_tpu_torch.ops import scan_kernels as sk
@@ -860,9 +956,10 @@ def phase_sql(tk, exp, nparts, queries, guard):
             checked = i == 1 + WARM_RUNS
             route = route_of(tk, q, nparts, i == 0)
             m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS +
-                  RETRY_COUNTERS + MATDIM_COUNTERS}
+                  RETRY_COUNTERS + MATDIM_COUNTERS + HOOK_COUNTERS}
             c0 = dict(sk.COUNTS)
             g0 = guard.calls
+            hs0, h0 = guard.hook_syncs, dict(guard.hook_calls)
             phase.reset()
             t0 = time.perf_counter()
             if checked:
@@ -875,7 +972,11 @@ def phase_sql(tk, exp, nparts, queries, guard):
             if got != want:
                 fail(f"{q} run {i}: rows {got} != expected {want}")
             check_route(q, f"run {i}", dom, m0, c0, route)
-            check_phase(q, i, snap, route, guard.calls - g0, cuda)
+            hooks, hook_syncs = check_hooks(
+                f"{q} run {i}", dom, m0, guard, h0, hs0,
+                *(SQL_HOOKS.get(q, ({}, 0)) if cuda else ({}, 0)))
+            check_phase(q, i, snap, route, guard.calls - g0, cuda,
+                        hook_syncs)
             retries = {c: dom.metrics.get(c, 0) - m0[c]
                        for c in RETRY_COUNTERS}
             if i > 0 and any(retries.values()):
@@ -896,7 +997,9 @@ def phase_sql(tk, exp, nparts, queries, guard):
                 f" product_pairs="
                 f"{sk.COUNTS['product_pairs'] - c0['product_pairs']}" +
                 ("".join(f" {c}={n}" for c, n in
-                         list(retries.items()) + list(mat.items()) if n)))
+                         list(retries.items()) + list(mat.items()) if n)) +
+                (f" hooks={json.dumps({k: n for k, n in hooks.items() if n})}"
+                 if any(hooks.values()) else ""))
         for name, n in route["launches"].items():
             if sum(c[0] == name for c in calls) != n:
                 fail(f"{q}: {n} {name} launches, "
@@ -965,7 +1068,7 @@ def phase_reader(tk, guard, cases=READER_CASES):
     fused fragments, one dispatch and one sync per partition after the
     first run (which may rerun a partition while it learns), no upload
     on a warm run whose columns are resident, every enqueue under the
-    sync guard. -> {name: {"warm_ms": warm median, "rematerialized_ms":
+    sync guard, no executor hook called. -> {name: {"warm_ms": warm median, "rematerialized_ms":
     the third run of a materialized dim's statement, "host_twin_ms"}}."""
     from tidb_tpu_torch.ops import scan_kernels as sk
     from tidb_tpu_torch.utils import phase
@@ -991,9 +1094,10 @@ def phase_reader(tk, guard, cases=READER_CASES):
             disp = sum(partitions_of(tk, f) for f in fused) + \
                 nreader * parts
             m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS +
-                  RETRY_COUNTERS}
+                  RETRY_COUNTERS + HOOK_COUNTERS}
             c0 = dict(sk.COUNTS)
             g0 = guard.calls
+            hs0, h0 = guard.hook_syncs, dict(guard.hook_calls)
             phase.reset()
             t0 = time.perf_counter()
             if checked:
@@ -1003,6 +1107,8 @@ def phase_reader(tk, guard, cases=READER_CASES):
                 got = tk.must_query(sql)._norm()
             ms = (time.perf_counter() - t0) * 1e3
             snap = phase.snap()
+            check_hooks(f"reader {name} run {i}", dom, m0, guard, h0, hs0,
+                        {}, 0)
             d = {c: dom.metrics.get(c, 0) - m0[c] for c in ROUTE_COUNTERS}
             retries = {c: dom.metrics.get(c, 0) - m0[c]
                        for c in RETRY_COUNTERS}
@@ -1054,6 +1160,114 @@ def phase_reader(tk, guard, cases=READER_CASES):
             f"median {out[name]['warm_ms']:.3f} ms" +
             ("" if remat is None else f", rematerialized {remat:.3f} ms") +
             f", host twin {host_ms:.3f} ms")
+    return out
+
+
+# domain counters of the executor hooks: the routes taken, and the
+# degrades that must not happen on the card
+HOOK_COUNTERS = ("sort_device", "window_device", "device_join",
+                 "sort_device_error", "window_device_error",
+                 "device_join_fallback", "device_fallback")
+HOST_RUNS = 3
+
+
+def phase_executor(tk, exp, guard, card=""):
+    """The executor's device hooks (bench/tpch.py EXECUTOR_CASES: ORDER
+    BYs, window functions and row-returning hash joins over customer and
+    orders). Each statement runs first as its host twin
+    (copr.use_device = False, tidb_join_exec = 'host'; once cold, then
+    HOST_RUNS warm), whose rows must equal the reference's committed
+    count and digest; then on the card under tidb_join_exec = 'auto'
+    (cold, then WARM_RUNS warm; a CPU rehearsal sets 'device', since
+    'auto' takes the device join only on the card), whose rows must
+    equal the host twin's.
+    Each run on the card calls each hook as often as the case says (the
+    hooks' own counters and the sync guard's agree), counts no error or
+    fallback, and makes exactly the case's syncs besides one per
+    fragment dispatch, every hook under set_sync_debug_mode("error")
+    but for its fetches. A statement's time is the host clock around
+    TestKit.must_query, the rows' formatting as strings (_norm, for the
+    comparison) left out. -> {name: {"card_ms", "hook_ms" (the
+    statement's time inside its hooks), "host_twin_ms", "rows",
+    "hook_upload_bytes"}}."""
+    from tidb_tpu_torch.bench import tpch
+    from tidb_tpu_torch.utils import phase
+    dom = tk.domain
+    copr = dom.copr
+    cuda = copr.device.type == "cuda"
+    out = {}
+    for name, sql, hooks, syncs in tpch.EXECUTOR_CASES:
+        copr.use_device = False
+        tk.must_exec("set @@tidb_join_exec = 'host'")
+        host_ms, want = [], None
+        try:
+            for i in range(1 + HOST_RUNS):
+                h0 = dict(guard.hook_calls)
+                t0 = time.perf_counter()
+                res = tk.must_query(sql)
+                ms = (time.perf_counter() - t0) * 1e3
+                rows = res._norm()
+                if guard.hook_calls != h0:
+                    fail(f"executor {name}: the host twin called a hook")
+                if want is None:
+                    want = rows
+                elif rows != want:
+                    fail(f"executor {name}: host twin rows changed")
+                if i:
+                    host_ms.append(ms)
+        finally:
+            copr.use_device = True
+            tk.must_exec("set @@tidb_join_exec = "
+                         f"'{'auto' if cuda else 'device'}'")
+        ref = exp.get(name)
+        got_ref = {"rows": len(want), "sha256": tpch.rows_digest(want)}
+        if ref is not None and got_ref != ref:
+            fail(f"executor {name}: host twin {got_ref} != the reference's "
+                 f"{ref}")
+        warm, hook_ms = [], []
+        for i in range(1 + WARM_RUNS):
+            m0 = {c: dom.metrics.get(c, 0) for c in HOOK_COUNTERS}
+            h0, hs0, g0 = dict(guard.hook_calls), guard.hook_syncs, \
+                guard.calls
+            hm0 = guard.hook_ms
+            phase.reset()
+            t0 = time.perf_counter()
+            res = tk.must_query(sql)
+            ms = (time.perf_counter() - t0) * 1e3
+            snap = phase.snap()
+            rows = res._norm()
+            if rows != want:
+                fail(f"executor {name} run {i}: rows != host twin "
+                     f"({len(rows)} vs {len(want)} rows)")
+            calls, _ = check_hooks(f"executor {name} run {i}", dom, m0,
+                                   guard, h0, hs0, hooks,
+                                   syncs if cuda else 0)
+            disp = snap.get("dispatches", 0)
+            if guard.calls - g0 != disp:
+                fail(f"executor {name} run {i}: {disp} fragment "
+                     f"dispatches, {guard.calls - g0} under the sync guard")
+            if snap.get("syncs", 0) != ((syncs + disp) if cuda else 0):
+                fail(f"executor {name} run {i}: {snap.get('syncs', 0)} "
+                     f"syncs; expected {syncs} in hooks and {disp} of "
+                     "fragments")
+            if i:
+                warm.append(ms)
+                hook_ms.append(guard.hook_ms - hm0)
+            log(f"executor {name} {'warm' if i else 'cold'} {ms:.2f} ms "
+                f"(in hooks {guard.hook_ms - hm0:.2f} ms) "
+                f"{phase_line(snap)} hook_upload_bytes="
+                f"{snap.get('hook_upload_bytes', 0)} "
+                f"hooks={json.dumps(calls)}")
+        out[name] = {"card_ms": statistics.median(warm),
+                     "hook_ms": statistics.median(hook_ms),
+                     "host_twin_ms": statistics.median(host_ms),
+                     "rows": len(want),
+                     "hook_upload_bytes": snap.get("hook_upload_bytes", 0)}
+        log(f"executor {name}: rows == host twin == reference "
+            f"({len(want)} rows, sha256 {got_ref['sha256'][:16]}...); warm "
+            f"median {out[name]['card_ms']:.3f} ms on {copr.device} "
+            f"({out[name]['hook_ms']:.3f} ms in hooks), host twin "
+            f"{out[name]['host_twin_ms']:.3f} ms ({card})")
     return out
 
 
@@ -1229,6 +1443,9 @@ def main():
     with open(os.path.join(ROOT, "tidb_tpu_torch", "bench",
                            "tpch_sf1_expected.json")) as f:
         exp = json.load(f)
+    with open(os.path.join(ROOT, "tidb_tpu_torch", "bench",
+                           "executor_sf1_expected.json")) as f:
+        exp_exec = json.load(f)
     t0 = time.perf_counter()
     tk = TestKit()                      # the card is the default device
     if tk.domain.copr.device.type != "cuda":
@@ -1274,9 +1491,16 @@ def main():
         reader_ms = counted("reader", lambda: phase_reader(tk, guard),
                             folds=False, kernels=("masked_sums",
                                                   "dense_group_sums"))
-    log(f"reader phase {time.perf_counter() - t0:.1f} s; "
-        f"{json.dumps(reader_ms)}; {guard.calls} fragment enqueues ran "
-        "under set_sync_debug_mode('error')")
+        log(f"reader phase {time.perf_counter() - t0:.1f} s; "
+            f"{json.dumps(reader_ms)}")
+        t0 = time.perf_counter()
+        exec_ms = counted("executor", lambda: phase_executor(
+            tk, exp_exec, guard, card), folds=False, kernels=())
+    log(f"executor phase {time.perf_counter() - t0:.1f} s; "
+        f"{json.dumps(exec_ms)}; {guard.calls} fragment enqueues and "
+        f"{sum(guard.hook_calls.values())} hook calls "
+        f"({json.dumps(guard.hook_calls)}) ran under "
+        "set_sync_debug_mode('error')")
     counted("wire", lambda: phase_wire(tk, exp, nparts, meds))
     log(f"launches by path: {json.dumps(by_path)}; folded product pairs "
         f"by path: {json.dumps(pairs_by_path)}")

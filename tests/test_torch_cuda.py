@@ -235,3 +235,120 @@ def test_sort_kind_queries_on_card_without_syncs():
             assert snap["dispatches"] == snap["syncs"] >= 1, (q, snap)
     finally:
         pipeline.run_fragment = run
+
+
+# ---- the executor's device hooks ---------------------------------------
+
+HOOK_SQL = {
+    "sort": "select a from t order by b desc, c, a",
+    "window": "select a, sum(c) over (partition by b order by a) from t "
+              "order by a",
+    "join": "select t.a, d.tag from t, d where t.b = d.id order by t.a",
+}
+
+
+@pytest.mark.parametrize("site", list(HOOK_SQL))
+def test_hook_grant_loss_fails_statement_on_card(monkeypatch, site):
+    """On the card a hook whose dispatch degrades fails its statement
+    (no host sort, window or join carries on), where the CPU takes the
+    host path; after the failpoint the same statement runs on the card
+    with the CPU's rows."""
+    from tidb_tpu_torch.errors import DeviceUnavailableError
+    from tidb_tpu_torch.testkit import TestKit
+    from tidb_tpu_torch.utils import failpoint
+    monkeypatch.setenv("TIDB_TPU_SORT_MIN", "1")
+    monkeypatch.setenv("TIDB_TPU_WINDOW_MIN", "1")
+    kits = TestKit(), TestKit(device="cpu")
+    for kit in kits:
+        kit.must_exec("create table t (a int primary key, b int, c int)")
+        kit.must_exec("insert into t values " + ",".join(
+            f"({i}, {i % 7}, {i % 13})" for i in range(400)))
+        kit.must_exec("create table d (id int primary key, tag int)")
+        kit.must_exec("insert into d values " + ",".join(
+            f"({i}, {i % 3})" for i in range(7)))
+        kit.must_exec("set tidb_join_exec = 'device'")
+    gpu, cpu = kits
+    failpoint.enable(f"device_guard/{site}", "error:grant_lost")
+    with pytest.raises(DeviceUnavailableError, match="grant_lost"):
+        gpu.must_query(HOOK_SQL[site])
+    failpoint.disable_all()
+    m = gpu.domain.metrics
+    for c in ("sort_device_error", "window_device_error",
+              "device_join_fallback"):
+        assert m.get(c, 0) == 0, c
+    counter = {"sort": "sort_device", "window": "window_device",
+               "join": "device_join"}[site]
+    n0 = m.get(counter, 0)
+    assert gpu.must_query(HOOK_SQL[site]).rows == \
+        cpu.must_query(HOOK_SQL[site]).rows
+    assert m.get(counter, 0) > n0
+
+
+def test_hook_programs_match_cpu_on_card():
+    """Each hook's program on CUDA tensors equals the same program on
+    the CPU, on the same inputs: the sort permutation, every window
+    function (floats within rtol 1e-9), the join's pairs and semi
+    mask; each with no wait on the card before its fetch."""
+    from tidb_tpu_torch.executor import sort_device, window_device
+    from tidb_tpu_torch.ops import device_join
+    rng = np.random.default_rng(17)
+    n = 100_003
+    keys = [rng.integers(-5, 5, n), rng.normal(size=n).round(2),
+            rng.integers(0, 1 << 40, n)]
+    k64 = sort_device.host_keys(keys)
+
+    def both(fn, *arrays):
+        out = []
+        for dev in ("cuda", "cpu"):
+            args = [_t(a).to(dev) if isinstance(a, np.ndarray) else
+                    [_t(x).to(dev) for x in a] for a in arrays]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out.append([r.cpu() for r in (res if isinstance(res, tuple)
+                                          else (res,))])
+        return out
+    g, c = both(sort_device.lexsort_permutation, k64)
+    assert torch.equal(g[0], c[0])
+    vals_i, vals_f = rng.integers(-(1 << 40), 1 << 40, n), rng.random(n)
+    ok = rng.random(n) < 0.9
+    wkeys = [k64[0], k64[2] % 1000]
+    for name in sorted(window_device.DEVICE_FNS):
+        for vals in (vals_i, vals_f):
+            for has_order in (False, True):
+                g, c = both(
+                    lambda ks, v, o: window_device.window_program(
+                        name, ks, 1, has_order, v, o,
+                        shift=2 if name == "lead" else -1,
+                        default=None if name == "lag" else 7),
+                    wkeys, vals, ok)
+                assert torch.equal(g[1], c[1]), name
+                live = ~c[1]
+                if g[0].dtype.is_floating_point:
+                    torch.testing.assert_close(g[0][live], c[0][live],
+                                               rtol=1e-9, atol=0)
+                else:
+                    assert torch.equal(g[0][live], c[0][live]), name
+    bk, pk = rng.integers(0, 5000, 20_000), rng.integers(0, 6000, 30_000)
+    bv, pv = rng.random(20_000) < 0.95, rng.random(30_000) < 0.95
+    g, c = both(device_join.join_counts, bk, bv, pk, pv)
+    for a, b in zip(g, c):
+        assert torch.equal(a, b)
+    total = int(c[0].sum())
+    for dev, res in (("cuda", g), ("cpu", c)):
+        pairs = device_join.expand_pairs(*(r.to(dev) for r in res), total)
+        if dev == "cuda":
+            gp = [p.cpu() for p in pairs]
+        else:
+            cp = pairs
+    for a, b in zip(gp, cp):
+        assert torch.equal(a, b)
+    for semi in (False, True):
+        got = device_join.device_join_index(bk, ~bv, pk, ~pv, "cuda",
+                                            semi_only=semi)
+        want = device_join.device_join_index(bk, ~bv, pk, ~pv, "cpu",
+                                             semi_only=semi)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or np.array_equal(a, b)

@@ -1,6 +1,7 @@
 """tidb_tpu_torch stands alone: it runs SQL (TPC-H Q6; Q3, fused
 with its dimension probes; Q17, with a materialized dimension; a
-reader-DAG top-n), its range lowering and its
+reader-DAG top-n; an ORDER BY, a window function and a hash join through
+the executor's device hooks), its range lowering and its
 wire server with jax and tidb_tpu blocked from import, no module of it
 (nor chip_smoke.py) imports them,
 and its entry points refuse to run on the host unless asked to."""
@@ -56,6 +57,24 @@ top = tk.must_query("select l_quantity from lineitem where l_discount < "
                     "0.03 order by l_quantity desc limit 5")._norm()
 assert tk.domain.metrics.get("copr_device_exec", 0) == d0 + 1, top
 assert len(top) == 5
+# the executor's device hooks: an ORDER BY, a window, a hash join
+import os
+os.environ["TIDB_TPU_SORT_MIN"] = os.environ["TIDB_TPU_WINDOW_MIN"] = "1000"
+m = tk.domain.metrics
+hooks0 = {c: m.get(c, 0) for c in ("sort_device", "window_device",
+                                   "device_join")}
+srt = tk.must_query("select o_orderkey from orders order by o_totalprice "
+                    "desc, o_orderkey")._norm()
+win = tk.must_query("select count(*) from (select row_number() over "
+                    "(partition by o_custkey order by o_orderdate, "
+                    "o_orderkey) as rn from orders) t where rn = 1")._norm()
+tk.must_exec("set tidb_join_exec = 'device'")
+jn = tk.must_query("select o_orderkey, c_name from orders join customer on "
+                   "o_custkey = c_custkey where o_orderdate < '1992-03-01' "
+                   "order by o_orderkey")._norm()
+assert {c: m.get(c, 0) - n for c, n in hooks0.items()} == \
+    {"sort_device": 1, "window_device": 1, "device_join": 1}, m
+assert len(srt) == 15000 and int(win[0][0]) > 0 and jn, (win, len(jn))
 srv.shutdown()
 st.shutdown()
 bad = [m for m in sys.modules if m in ("jax", "jaxlib", "tidb_tpu")
@@ -101,6 +120,10 @@ def _sources():
 
 
 def test_no_jax_or_reference_imports():
+    paths = [os.path.relpath(p, ROOT) for p in _sources()]
+    for hook in ("executor/sort_device.py", "executor/window_device.py",
+                 "ops/device_join.py"):
+        assert os.path.join("tidb_tpu_torch", hook) in paths
     found = []
     for path in _sources():
         with open(path) as f:

@@ -1,6 +1,7 @@
 """Where a TPC-H statement's time goes on the card: Q6, Q1 and the join
-queries Q3 and Q5 by default, or any of the 22 at SF1, through TestKit
-on CUDA, cold once and then warm. It
+queries Q3 and Q5 by default, or any of the 22 or of the executor
+statements of bench/tpch.py EXECUTOR_CASES at SF1, through TestKit on
+CUDA, cold once and then warm. It
 is the trace tool a performance change starts from (chip_smoke.py
 checks, this explains), and it runs the sizes chip_smoke.py does not:
 `--sf 10` is Q1's size in BASELINE.md.
@@ -8,7 +9,9 @@ checks, this explains), and it runs the sizes chip_smoke.py does not:
 It reports the load's wall time and the process's peak resident memory
 after the load and at the end, and checks each query's rows against the
 numpy oracle (bench/tpch.py) or, at SF1, the committed reference rows
-(bench/tpch_sf1_expected.json), failing on a mismatch. For each query
+(bench/tpch_sf1_expected.json; an executor statement: its count and
+digest in bench/executor_sf1_expected.json), failing on a mismatch. For
+each query
   - the warm wall time per statement (host clock around work that ends
     in torch.cuda.synchronize) and lineitem rows scanned per second;
   - the device's busy time over the same statements under
@@ -71,6 +74,13 @@ STAGES = [
     # the reader DAGs on the card
     ("matdim", "copr/pipeline.py", "_materialized_dim_meta"),
     ("reader_dag", "copr/dag_exec.py", "_execute_device_inner"),
+    # the executor's device hooks (uploads, program and fetch) and the
+    # host work around them
+    ("sort_key_arrays", "executor/executors.py", "_sort_key_arrays"),
+    ("sort_hook", "executor/sort_device.py", "device_sort_permutation"),
+    ("window_hook", "executor/window_device.py", "run_window_device"),
+    ("join_hook", "ops/device_join.py", "device_join_index"),
+    ("join_emit", "executor/executors.py", "_emit"),
 ]
 
 
@@ -170,10 +180,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--queries", default="q6,q1,q3,q5",
-                    help="comma-separated TPC-H queries (q1..q22); at "
-                    "SF1 each is checked against the committed rows, "
-                    "at other scale factors only q6, q1, q3 and q5, "
-                    "against their numpy oracles")
+                    help="comma-separated TPC-H queries (q1..q22) or "
+                    "executor statements (bench/tpch.py EXECUTOR_CASES, "
+                    "SF1 only); at SF1 each is checked against the "
+                    "committed rows, at other scale factors only q6, "
+                    "q1, q3 and q5, against their numpy oracles")
     ap.add_argument("--out", default=os.path.join("chiprun_out",
                                                    "profile_tpch.json"))
     args = ap.parse_args(argv)
@@ -209,19 +220,28 @@ def main(argv=None):
           "GiB", flush=True)
     oracles = {"q6": tpch.q6_oracle, "q1": tpch.q1_oracle,
                "q3": tpch.q3_oracle, "q5": tpch.q5_oracle}
+    queries = dict(tpch.ALL_QUERIES)
+    queries.update({c[0]: c[1] for c in tpch.EXECUTOR_CASES})
     if args.sf == 1.0:
-        with open(os.path.join(os.path.dirname(__file__),
-                               "tpch_sf1_expected.json")) as f:
+        here = os.path.dirname(__file__)
+        with open(os.path.join(here, "tpch_sf1_expected.json")) as f:
             committed = json.load(f)
         for q in tpch.ALL_QUERIES:
             oracles.setdefault(q, lambda _tk, _w=committed[q]: [
                 tuple(r) for r in _w])
+        with open(os.path.join(here, "executor_sf1_expected.json")) as f:
+            digests = json.load(f)
+        for c in tpch.EXECUTOR_CASES:
+            # compared as (row count, digest) of the rows
+            oracles[c[0]] = lambda _tk, _d=digests[c[0]]: (
+                _d["rows"], _d["sha256"])
+    executor = {c[0] for c in tpch.EXECUTOR_CASES}
     for q in args.queries.split(","):
         if q not in oracles:
             print(f"profile_tpch: no rows to check {q} against at "
                   f"SF{args.sf}", file=sys.stderr)
             return 2
-        sql = tpch.ALL_QUERIES[q]
+        sql = queries[q]
         r = rec["queries"][q] = {}
         prof = cProfile.Profile()
         t0 = time.perf_counter()
@@ -229,8 +249,10 @@ def main(argv=None):
         rows = tk.must_query(sql)._norm()
         prof.disable()
         r["cold_ms_under_cprofile"] = (time.perf_counter() - t0) * 1e3
+        if q in executor:
+            rows = (len(rows), tpch.rows_digest(rows))
         if rows != oracles[q](tk):
-            print(f"profile_tpch: {q} rows {rows} != the numpy oracle's",
+            print(f"profile_tpch: {q} rows {rows} != the expected ones",
                   file=sys.stderr)
             return 1
         r["cold_stage_ms"] = {k: v * 1e3 for k, v in
@@ -305,7 +327,8 @@ def main(argv=None):
         print(f"{q}: warm phase " + ", ".join(
             f"{k}={wp.get(k, 0)}" for k in (
                 "dispatches", "syncs", "fetches", "fetch_bytes", "sync_ms",
-                "upload_bytes", "mask_upload_bytes")) +
+                "upload_bytes", "mask_upload_bytes",
+                "hook_upload_bytes")) +
             f"; fused hits so far {r['fused_pipeline_hit']}, last "
             f"decline {r['last_fused_reason']}", flush=True)
         for phase_name in ("cold_stage_ms", "warm_stage_ms"):

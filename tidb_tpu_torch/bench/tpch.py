@@ -5,6 +5,8 @@ numpy-vectorized). Loads straight into the columnar engine via bulk_append
 dbgen text (comments etc.) is irrelevant for the engine paths exercised."""
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 
 from ..types.time_types import days_to_str, parse_date
@@ -798,3 +800,70 @@ ALL_QUERIES = {
     "q14": Q14, "q15": Q15, "q16": Q16, "q17": Q17, "q18": Q18, "q19": Q19,
     "q20": Q20, "q21": Q21, "q22": Q22,
 }
+
+# ---- executor device hooks over customer and orders ---------------------
+# Statements whose ORDER BY, window functions and hash joins run in the
+# executor (outside the fused pipeline): (name, SQL, hook calls of one
+# statement as {"sort": n, "window": n, "join": n}, the syncs those calls
+# make: 1 per sort and window call, 2 per inner or outer join, 1 per
+# semi or anti join). At SF1: 150,000 customers, 1,500,000 orders; a
+# sort or window takes its hook from 32,768 / 16,384 rows, so a join
+# result's ORDER BY does only from that size (the anti join's). The
+# window statements aggregate their derived table, so their rows are
+# few; each also sums the window's output weighted by a per-row weight
+# (w = o_orderkey % 100), so a value on the wrong row changes the rows
+# (the first-order case's rn = 1 picks rows, and sum(o_orderkey) names
+# them). The others are compared by rows_digest.
+_MONTH = "o_orderdate >= '1995-03-01' and o_orderdate < '1995-04-01'"
+_BY_DATE = "partition by o_custkey order by o_orderdate, o_orderkey"
+EXECUTOR_CASES = (
+    ("sort_customer", "select c_custkey, c_name, c_acctbal from customer "
+     "order by c_mktsegment, c_acctbal desc, c_custkey", {"sort": 1}, 1),
+    ("sort_float", "select o_orderkey, o_totalprice * 1e0 as f from orders "
+     "where o_orderdate < '1993-06-01' order by f, o_orderkey",
+     {"sort": 1}, 1),
+    ("window_first_order", "select count(*), sum(o_orderkey), "
+     "sum(o_totalprice) from (select o_orderkey, o_totalprice, "
+     f"row_number() over ({_BY_DATE}) as rn from orders) t where rn = 1",
+     {"window": 1}, 1),
+    ("window_rank", "select sum(r), sum(dr), max(r), max(dr), sum(r * w), "
+     "sum(dr * w) from (select o_orderkey % 100 as w, rank() over "
+     "(partition by o_custkey order by o_totalprice) as r, dense_rank() "
+     "over (partition by o_custkey order by o_totalprice) as dr from "
+     "orders) t", {"window": 2}, 2),
+    ("window_running_sum", "select sum(s), max(s), min(s), sum(s * w) from "
+     "(select o_orderkey % 100 as w, sum(o_totalprice) over "
+     f"({_BY_DATE}) as s from orders) t", {"window": 1}, 1),
+    ("window_min_max", "select sum(mx - mn), max(mx), min(mn), "
+     "sum((mx - mn) * w) from (select o_orderkey % 100 as w, "
+     "min(o_totalprice) over (partition by o_custkey) as mn, "
+     "max(o_totalprice) over (partition by o_custkey) as mx from orders) t",
+     {"window": 2}, 2),
+    ("window_lag_lead", "select sum(pv), sum(nv), min(nv), count(*), "
+     "sum(pv * w), sum(nv * w) from (select o_orderkey % 100 as w, "
+     f"lag(o_totalprice, 1, 0) over ({_BY_DATE}) as pv, "
+     f"lead(o_totalprice, 2, -1) over ({_BY_DATE}) as nv from orders) t",
+     {"window": 2}, 2),
+    ("join_inner", "select /*+ HASH_JOIN(orders, customer) */ o_orderkey, "
+     "c_name, o_totalprice from orders join customer on o_custkey = "
+     f"c_custkey where {_MONTH} order by o_orderkey", {"join": 1}, 2),
+    ("join_left", "select /*+ HASH_JOIN(orders, c) */ o_orderkey, c_name "
+     "from orders left join (select c_custkey, c_name from customer where "
+     "c_mktsegment = 'BUILDING') c on o_custkey = c_custkey where "
+     f"{_MONTH} order by o_orderkey", {"join": 1}, 2),
+    # an IN subquery without correlation becomes an IN list at plan
+    # time; correlated, it is a semi join
+    ("join_semi", "select c_custkey, c_name from customer where c_custkey "
+     f"in (select o_custkey from orders where {_MONTH} and o_custkey = "
+     "c_custkey) order by c_custkey", {"join": 1}, 1),
+    ("join_anti", "select c_custkey, c_acctbal from customer where not "
+     "exists (select 1 from orders where o_custkey = c_custkey and "
+     f"{_MONTH}) order by c_custkey", {"join": 1, "sort": 1}, 2),
+)
+
+
+def rows_digest(rows) -> str:
+    """sha256 of rows in TestKit's string form: one line per row, fields
+    separated by tabs."""
+    text = "\n".join("\t".join(r) for r in rows)
+    return hashlib.sha256(text.encode()).hexdigest()

@@ -390,6 +390,16 @@ def to_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """numpy -> tensor on `device` with numpy's dtype; on the card a
+    non-blocking copy from pinned host memory, which does not wait on
+    the card as a copy from pageable memory does."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def lower_column(col: Column, cap: int, sdict: StringDict | None = None,
                  device="cpu"):
     """Column -> DeviceCol on `device`, padded to cap (strings as

@@ -1126,9 +1126,27 @@ class SortExec(Executor):
         self._out = out
 
     def _order(self, keys, n):
-        """Sort permutation: host np.lexsort (stable). The reference's
-        device lexsort above a size floor (executor/sort_device.py) is
-        not yet ported; its host branch is this one."""
+        """Sort permutation: the device's chained stable sorts above the
+        size floor (executor/sort_device.py), host np.lexsort otherwise.
+        Both are stable, so device == host row order for integer-keyed
+        sorts (incl. dict/collation ranks). On the card a degraded
+        dispatch fails the statement; on the CPU it takes np.lexsort."""
+        copr = self.ctx.copr
+        if copr.use_device and keys:
+            from .sort_device import device_sort_permutation
+            from ..utils import device_guard
+            try:
+                o = device_guard.guarded_dispatch(
+                    lambda: device_sort_permutation(keys, n, copr.device),
+                    site="sort", ectx=self.ctx,
+                    fallback_is_host=copr.degrade_to_host)
+                if o is not None:
+                    self.ctx.sess.domain.inc_metric("sort_device")
+                    return o
+            except device_guard.DeviceDegradedError:
+                if not copr.degrade_to_host:
+                    raise
+                self.ctx.sess.domain.inc_metric("sort_device_error")
         return np.lexsort(list(reversed(keys))) if keys \
             else np.arange(n)
 
@@ -2081,9 +2099,25 @@ class HashJoinExec(Executor):
             # NULL (no match) for every x -> empty result
             return Chunk.empty(out_fts)
 
-        # the device join (ops/device_join.py of the reference, taken
-        # under tidb_join_exec=device or auto on an accelerator) is not
-        # yet ported: every hash join runs on the host
+        mode = str(self.ctx.sv.get("tidb_join_exec"))
+        copr = self.ctx.copr
+        use_device = (mode == "device" or
+                      (mode == "auto" and copr.device.type == "cuda"))
+        if use_device and not naaj and bv.dtype == np.int64 \
+                and pv.dtype == np.int64 and not plan.other_conds:
+            from ..utils import device_guard
+            try:
+                return device_guard.guarded_dispatch(
+                    lambda: self._device_join(jt, outer, probe, build, bv,
+                                              bnull, pv, pnull),
+                    site="join", ectx=self.ctx,
+                    fallback_is_host=copr.degrade_to_host)
+            except device_guard.DeviceDegradedError:
+                # on the card the statement fails; on the CPU the host
+                # join below is always correct
+                if not copr.degrade_to_host:
+                    raise
+                self.ctx.sess.domain.inc_metric("device_join_fallback")
         if len(bv) and bv.dtype.kind != "V" and \
                 (len(bv) == 1 or bool(np.all(bv[:-1] <= bv[1:]))):
             # pre-sorted build keys (clustered-PK scans, grouped-agg
@@ -2136,6 +2170,29 @@ class HashJoinExec(Executor):
                 outer_part = self._emit(probe, un, None, None)
                 return inner.concat(outer_part)
         return self._emit(probe, pi, build, bi)
+
+    def _device_join(self, jt, outer, probe, build, bv, bnull, pv,
+                     pnull):
+        """The join through ops/device_join.py on the domain's device;
+        rows emitted as the host join emits them."""
+        from ..ops.device_join import device_join_index
+        dev = self.ctx.copr.device
+        if jt in ("semi", "anti"):
+            matched, _ = device_join_index(bv, bnull, pv, pnull, dev,
+                                           semi_only=True)
+            sel = np.nonzero(matched if jt == "semi" else ~matched)[0]
+            out = self._emit(probe, sel, None, None)
+        else:
+            pi, bi = device_join_index(bv, bnull, pv, pnull, dev)
+            out = self._emit(probe, pi, build, bi)
+            if outer:
+                matched = np.zeros(len(probe), dtype=bool)
+                matched[pi] = True
+                un = np.nonzero(~matched)[0]
+                if len(un):
+                    out = out.concat(self._emit(probe, un, None, None))
+        self.ctx.sess.domain.inc_metric("device_join")
+        return out
 
     def _pair_conds_mask(self, probe, pi, build, bi):
         """Evaluate plan.other_conds over matched (probe, build) row

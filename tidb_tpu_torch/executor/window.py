@@ -214,9 +214,68 @@ class WindowExec(Executor):
         return offset, default
 
     def _try_device(self, d, name, keys, vals0, ok0, asd, n):
-        """The device window kernel (executor/window_device.py of the
-        reference) is not yet ported: every window runs on the host."""
-        return None
+        """Route an eligible window spec to the device program
+        (executor/window_device.py): unbounded-frame rank/agg/lag
+        functions over int-comparable keys, above a size floor (tiny
+        windows aren't worth a device round trip). -> (out, nulls,
+        out_dict) in input-row order, or None to run the host path. On
+        the card a degraded dispatch fails the statement; on the CPU
+        the host path runs."""
+        import os
+        min_rows = int(os.environ.get("TIDB_TPU_WINDOW_MIN", 1 << 14))
+        from .window_device import DEVICE_FNS, run_window_device
+        copr = self.ctx.copr
+        if (d.frame is not None or name not in DEVICE_FNS or
+                not copr.use_device or n < min_rows):
+            return None
+        if vals0.dtype == object:            # big decimals: host-exact
+            return None
+        if vals0.dtype.kind == "u":
+            # unsigned BIGINT: torch has few uint64 ops on the card, so
+            # such values take the host route, as in the evaluator
+            return None
+        if name == "avg" and d.ft.tclass == TypeClass.DECIMAL:
+            return None                       # exact rounding on host
+        shift, default, out_dict = 0, None, None
+        if name in ("lag", "lead"):
+            offset, dv = self._lag_args(d)
+            if offset is None:                # non-constant offset
+                return None
+            if dv is not None:
+                if asd is not None:           # dict default needs encode
+                    return None
+                if not isinstance(dv, (int, float)):
+                    return None
+                if d.ft.tclass == TypeClass.DECIMAL:
+                    # column values are SCALED ints: scale the default
+                    # the same way (mirrors the host path)
+                    from ..types.decimal import dec_to_scaled_int
+                    dv = dec_to_scaled_int(dv, max(d.ft.decimal, 0))
+                default = dv
+            shift = -offset if name == "lag" else offset
+            out_dict = asd
+        if name in ("min", "max") and asd is not None:
+            # codes arrive already remapped into rank order by
+            # _one_desc (host/device share the same pre-map)
+            out_dict = asd
+        from ..utils import device_guard
+        try:
+            out, nulls = device_guard.guarded_dispatch(
+                lambda: run_window_device(
+                    name, keys, len(d.partition_by), bool(d.order_by),
+                    vals0, ok0, n, copr.device, shift=shift,
+                    default=default),
+                site="window", ectx=self.ctx,
+                fallback_is_host=copr.degrade_to_host)
+        except device_guard.DeviceDegradedError:
+            if not copr.degrade_to_host:
+                raise
+            self.ctx.sess.domain.inc_metric("window_device_error")
+            return None
+        self.ctx.sess.domain.inc_metric("window_device")
+        if name == "sum":
+            out = self._sum_scale(d, out)
+        return out, nulls, out_dict
 
     def _rows_bounds(self, d, part_start, part_end, n):
         """ROWS frame: [i-prec, i+fol] clipped to the partition."""

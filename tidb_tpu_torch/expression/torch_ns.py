@@ -28,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..chunk.device import upload
+
 _NP_TO_TORCH = {
     np.dtype(np.bool_): torch.bool,
     np.dtype(np.int8): torch.int8,
@@ -124,11 +126,7 @@ class TorchNS:
         if isinstance(x, np.ndarray):
             if x.dtype == object:
                 raise TypeError("object arrays have no device form")
-            t = torch.from_numpy(np.ascontiguousarray(x))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            else:
-                t = t.to(self.device)
+            t = upload(x, self.device)
             return t if td is None or t.dtype == td else t.to(td)
         if isinstance(x, bool):
             return torch.full((), x, dtype=td or torch.bool,
