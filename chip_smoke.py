@@ -13,9 +13,18 @@ lowering and the runs->sorted pin, dense and global group-bys of a small
 table) against their host twin, then the executor's device hooks (ORDER
 BYs over customer and orders, window functions over all of orders,
 row-returning inner, left, semi and anti hash joins between them) against
-their host twin and the reference's committed digests, and Q6, Q1, the
-global aggregate, Q3 and Q5 again through the package's MySQL wire
-server, with a raw-socket client. Every statement's rows are held to the
+their host twin and the reference's committed digests, then vector
+search over 1,000,000 x VECTOR(128) (sift-128-euclidean's shape, a
+seeded mixture of Gaussians loaded by IMPORT INTO's bulk path: exact
+top-10 in three metrics, ties across the 10th row and NULL vectors, a
+hybrid search at 1 % selectivity, an IVF index trained on the card with
+recall@10 >= 0.95 against a float64 oracle, a stream of inserts folded
+through the tail patch and the index's delta path) and in-SQL inference
+(CREATE MODEL from seeded npz files; predict() fused in a filter over
+SF1 lineitem, through masked_sums, and standalone over orders), each
+held to its host twin in the same process, and Q6, Q1, the global
+aggregate, Q3 and Q5 again through the package's MySQL wire server,
+with a raw-socket client. Every statement's rows are held to the
 reference package's committed SF1 rows (or a numpy oracle, or the host
 twin), and its route to the counters of the fused path and the reader
 DAGs: fragments, host and device scans, no decline, one dispatch and one
@@ -32,8 +41,10 @@ folds into range_filter_sums (one per partition and statement).
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one
 CUDA device and the CUDA toolkit (nvcc), and exits non-zero, printing no
-result, when either is missing or any phase fails. The last two lines
-of its output are a `{"kernels": [...]}` JSON line and
+result, when either is missing or any phase fails. The last lines of
+its output are a `{"programs": [...]}` JSON line (the vector and
+inference programs' device ms beside their bounds), the card's name and
+power limit, a `{"kernels": [...]}` JSON line and
 `{"ok": true, "device": {...}}`."""
 from __future__ import annotations
 
@@ -1271,6 +1282,671 @@ def phase_executor(tk, exp, guard, card=""):
     return out
 
 
+# ---- vector search (ROADMAP A.8) ----------------------------------------
+# The corpus has ann-benchmarks' sift-128-euclidean shape (SIFT1M: 10^6
+# rows of 128 float dimensions) as a seeded mixture of Gaussians, as
+# scripts/vector_smoke.py makes its own: centers * 4, noise 0.35, about
+# 244 rows per center (vector_smoke: 195), 4 decimals of text per value.
+VEC_ROWS, VEC_DIM, VEC_CENTERS, VEC_BLOCK = 1_000_000, 128, 4096, 1 << 16
+VEC_EDGE_ROWS, VEC_DUPS, VEC_NULLS = 1 << 16, 30, 3
+VEC_K, VEC_QUERIES, VEC_INSERTS = 10, 20, 5
+VEC_RECALL = 0.95
+FP32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
+
+
+def vector_block(b, nrows):
+    """Rows [b * VEC_BLOCK, (b + 1) * VEC_BLOCK) of an nrows corpus
+    (float32), from the seed alone, so that worker processes make them
+    alike."""
+    import numpy as np
+    centers = np.random.default_rng([SEED, 1 << 20]).standard_normal(
+        (VEC_CENTERS, VEC_DIM), dtype=np.float32) * np.float32(4.0)
+    rng = np.random.default_rng([SEED, b])
+    n = min(VEC_BLOCK, nrows - b * VEC_BLOCK)
+    lab = rng.integers(0, VEC_CENTERS, n)
+    return centers[lab] + rng.standard_normal(
+        (n, VEC_DIM), dtype=np.float32) * np.float32(0.35)
+
+
+def vector_block_texts(b_nrows):
+    """A block's rows (vector_block) as VECTOR text, 4 decimals per
+    value."""
+    import io
+    import numpy as np
+    buf = io.StringIO()
+    np.savetxt(buf, vector_block(*b_nrows), fmt="%.4f", delimiter=",")
+    return ["[" + line + "]" for line in buf.getvalue().split("\n")[:-1]]
+
+
+def vec_text(v):
+    return "[" + ",".join(f"{x:.4f}" for x in v) + "]"
+
+
+def vec_query(v):
+    """The float32 vector the engine parses from vec_text(v)."""
+    from tidb_tpu_torch.expression.vec import _parse_vec_text
+    return _parse_vec_text(vec_text(v))
+
+
+def vector_load(tk):
+    """The corpus through the IMPORT INTO path (ColumnarTable.bulk_append:
+    no row KV), its text made by one process per core. Table vcorpus
+    (id, grp = id % 100, e VECTOR(128)); table vedge: the first
+    VEC_EDGE_ROWS rows, VEC_DUPS copies of row 123 and VEC_NULLS NULL
+    vectors. -> (the stored float32 matrix as parsed from the text,
+    seconds)."""
+    import multiprocessing
+    import numpy as np
+    t0 = time.perf_counter()
+    nblocks = -(-VEC_ROWS // VEC_BLOCK)
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(max(1, min(os.cpu_count() or 1, 16))) as pool:
+        texts = [t for part in pool.map(
+            vector_block_texts, [(b, VEC_ROWS) for b in range(nblocks)])
+            for t in part]
+    t_text = time.perf_counter() - t0
+    dom = tk.domain
+    tk.must_exec(f"create table vcorpus (id bigint primary key, grp bigint, "
+                 f"e vector({VEC_DIM}))")
+    tk.must_exec(f"create table vedge (id bigint primary key, "
+                 f"e vector({VEC_DIM}))")
+    ids = np.arange(VEC_ROWS, dtype=np.int64)
+    tbl = dom.infoschema().table_by_name("test", "vcorpus")
+    ctab = dom.columnar.table(tbl)
+    ctab.bulk_append({"id": ids, "grp": ids % 100,
+                      "e": np.array(texts, dtype=object)}, VEC_ROWS,
+                     handles=ids + 1)
+    ne = VEC_EDGE_ROWS + VEC_DUPS + VEC_NULLS
+    etexts = np.array(texts[:VEC_EDGE_ROWS] + [texts[123]] * VEC_DUPS +
+                      ["[]"] * VEC_NULLS, dtype=object)
+    enull = np.zeros(ne, dtype=bool)
+    enull[-VEC_NULLS:] = True
+    etab = dom.columnar.table(dom.infoschema().table_by_name("test",
+                                                             "vedge"))
+    etab.bulk_append({"id": np.arange(ne, dtype=np.int64), "e": etexts}, ne,
+                     handles=np.arange(1, ne + 1, dtype=np.int64),
+                     nulls={"e": enull})
+    t_bulk = time.perf_counter() - t0 - t_text
+    stored, n = ctab.vector_matrix(tbl.find_column("e").id, VEC_DIM)
+    secs = time.perf_counter() - t0
+    log(f"vector load: {VEC_ROWS} x VECTOR({VEC_DIM}) in {secs:.1f} s "
+        f"(text {t_text:.1f} s in {nblocks} blocks, bulk_append "
+        f"{t_bulk:.1f} s, parse into the float32 matrix "
+        f"{secs - t_text - t_bulk:.1f} s); {n} rows")
+    if n != VEC_ROWS or np.isnan(stored).any():
+        fail("vector load: the parsed matrix has NaN rows or a wrong length")
+    return stored, secs
+
+
+def l2_oracle(stored64, q, k, mask=None):
+    """Top-k ids by float64 L2 over the stored vectors (stable)."""
+    import numpy as np
+    d = np.sqrt(((stored64 - q.astype(np.float64)) ** 2).sum(1))
+    if mask is not None:
+        d = np.where(mask, d, np.inf)
+    return [int(i) for i in np.argsort(d, kind="stable")[:k]]
+
+
+FALLBACK_LABELS = (("VECTOR_SEARCH", "host_fallback"),
+                   ("VECTOR_SEARCH", "hybrid_host_fallback"),
+                   ("ML_PREDICT", "host_fallback"))
+
+
+def fallbacks(dom):
+    """Counters a degrade or a host fallback moves, less what the host
+    twin runs (copr.use_device = False, counted as served by the host)
+    moved (TWIN_MOVES)."""
+    from tidb_tpu_torch.utils import metrics as mu
+    out = {f"{m}.{lab}": getattr(mu, m).labels(lab).value
+           for m, lab in FALLBACK_LABELS}
+    for c in ("device_fallback", "device_dispatch_error", "device_retry"):
+        out[c] = dom.metrics.get(c, 0)
+    return {k: v - TWIN_MOVES.get(k, 0) for k, v in out.items()}
+
+
+TWIN_MOVES = {}
+
+
+def host_twin(tk, sql):
+    """`sql`'s rows as the host twin computes them (copr.use_device =
+    False, same process), with the fallback counters it moves set apart
+    in TWIN_MOVES. -> (rows, ms)."""
+    dom = tk.domain
+    f0 = fallbacks(dom)
+    dom.copr.use_device = False
+    try:
+        t0 = time.perf_counter()
+        rows = tk.must_query(sql).rows
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        dom.copr.use_device = True
+    for k, v in fallbacks(dom).items():
+        TWIN_MOVES[k] = TWIN_MOVES.get(k, 0) + v - f0[k]
+    return rows, ms
+
+
+def vector_run(tk, guard, sql, label, runs, twin=True):
+    """`sql` cold once, then `runs` warm, every program enqueue under the
+    sync guard; the last warm run's rows are held to the host twin's
+    (copr.use_device = False, same process). A warm run: at most 2
+    dispatches (all under the guard) and 1 sync, no upload. -> (rows,
+    warm median ms, last warm phase snapshot)."""
+    from tidb_tpu_torch.utils import phase
+    warm, rows = [], None
+    for i in range(1 + runs):
+        g0 = guard.calls
+        phase.reset()
+        t0 = time.perf_counter()
+        got = tk.must_query(sql).rows
+        ms = (time.perf_counter() - t0) * 1e3
+        snap = phase.snap()
+        if rows is not None and got != rows:
+            fail(f"vector {label} run {i}: rows changed")
+        rows = got
+        disp = snap.get("dispatches", 0)
+        if guard.calls - g0 != disp or snap.get("device_fallbacks", 0):
+            fail(f"vector {label} run {i}: {disp} dispatches, "
+                 f"{guard.calls - g0} under the sync guard, "
+                 f"{snap.get('device_fallbacks', 0)} fallbacks")
+        if i:
+            warm.append(ms)
+            if disp > 2 or snap.get("syncs", 0) > 1 or \
+                    snap.get("upload_bytes", 0):
+                fail(f"vector {label} warm run {i}: {phase_line(snap)}")
+        log(f"vector {label} {'warm' if i else 'cold'} {ms:.2f} ms "
+            f"{phase_line(snap)} query_upload_bytes="
+            f"{snap.get('query_upload_bytes', 0)}")
+    if twin:
+        twin, host_ms = host_twin(tk, sql)
+        if twin != rows:
+            fail(f"vector {label}: rows {rows} != host twin {twin}")
+        log(f"vector {label}: rows == host twin ({host_ms:.1f} ms)")
+    return rows, statistics.median(warm), snap
+
+
+def phase_vector(tk, guard, card):
+    """Vector search at SIFT1M's shape (VEC_ROWS x VECTOR(VEC_DIM)): warm
+    exact top-10 (L2 x WARM_RUNS, cosine, negative inner product), the
+    tie/NULL edge table, a hybrid search at 1 % selectivity, CREATE
+    VECTOR INDEX ... USING IVF trained on the card, IVF searches at the
+    default nprobe (recall@10 >= VEC_RECALL against the float64 numpy
+    oracle), then a stream of inserts folded through the vector/delta
+    patch and the index's delta path. Rows == the host twin's; no
+    fallback. -> {"ms": {...}, "programs": [...]}."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.utils import metrics as mu
+    from tidb_tpu_torch.utils import phase
+    from tidb_tpu_torch.vector.ivf import KMEANS_ITERS
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        fail("TF32 is on: float32 products would keep ~3 digits")
+    log("vector: TF32 off (matmul, cudnn), float32 matmul precision "
+        "'highest'")
+    dom = tk.domain
+    f0 = fallbacks(dom)
+    stored, load_s = vector_load(tk)
+    stored64 = stored.astype(np.float64)
+    rng = np.random.default_rng([SEED, 1 << 21])
+    qrows = rng.integers(0, VEC_ROWS, VEC_QUERIES)
+    queries = stored[qrows] + rng.standard_normal(
+        (VEC_QUERIES, VEC_DIM), dtype=np.float32) * np.float32(0.15)
+    ms = {"load_s": load_s}
+
+    def sql_for(q, metric="vec_l2_distance", where="", table="vcorpus"):
+        return (f"select id from {table} {where}order by "
+                f"{metric}(e, '{vec_text(q)}') limit {VEC_K}")
+    # exact, three metrics
+    q0 = queries[0]
+    rows, ms["exact_l2"], snap = vector_run(tk, guard, sql_for(q0),
+                                            "exact l2", WARM_RUNS)
+    want = l2_oracle(stored64, vec_query(q0), VEC_K)
+    if [r[0] for r in rows] != want:
+        fail(f"vector exact l2: {rows} != the float64 oracle {want}")
+    if mu.VECTOR_SEARCH.labels("exact").value < 1 + WARM_RUNS:
+        fail("vector exact l2 did not take the exact device path")
+    for metric in ("vec_cosine_distance", "vec_negative_inner_product"):
+        _r, ms["exact_" + metric[4:-9]], _s = vector_run(
+            tk, guard, sql_for(q0, metric), "exact " + metric, 2)
+    # ties across the 10th row and NULL vectors first
+    edge, _m, _s = vector_run(tk, guard, sql_for(
+        stored[123], table="vedge"), "edge (ties, NULLs)", 2)
+    ne = VEC_EDGE_ROWS + VEC_DUPS + VEC_NULLS
+    want = list(range(ne - VEC_NULLS, ne)) + [123] + list(
+        range(VEC_EDGE_ROWS, VEC_EDGE_ROWS + VEC_K - VEC_NULLS - 1))
+    if [r[0] for r in edge] != want:
+        fail(f"vector edge: {edge} != NULLs first, then the lowest of the "
+             f"tied rows {want}")
+    # hybrid at 1 % selectivity
+    hyb, ms["hybrid"], _s = vector_run(
+        tk, guard, sql_for(q0, where="where grp = 7 "), "hybrid 1%",
+        WARM_RUNS)
+    want = l2_oracle(stored64, vec_query(q0), VEC_K,
+                     np.arange(VEC_ROWS) % 100 == 7)
+    if [r[0] for r in hyb] != want:
+        fail(f"vector hybrid: {hyb} != the float64 oracle {want}")
+    # IVF
+    t0 = time.perf_counter()
+    tk.must_exec("create vector index vidx on vcorpus (e) using ivf")
+    phase.reset()
+    k0 = guard.calls
+    first = tk.must_query(sql_for(queries[1])).rows
+    ms["ivf_build_s"] = time.perf_counter() - t0
+    index = dom.vector.indexes()[0][1]
+    log(f"vector ivf: CREATE VECTOR INDEX + first search (trains "
+        f"{len(index.centroids)} lists over {VEC_ROWS} rows, "
+        f"{KMEANS_ITERS} Lloyd steps on the card) "
+        f"{ms['ivf_build_s']:.2f} s {phase_line(phase.snap())}; "
+        f"{guard.calls - k0} programs under the sync guard")
+    hits = 0
+    ivf_warm = []
+    for i, q in enumerate(queries):
+        sql = sql_for(q)
+        rows, med, _s = vector_run(tk, guard, sql, f"ivf q{i}",
+                                   WARM_RUNS if i == 0 else 1,
+                                   twin=i < 3)
+        ivf_warm.append(med)
+        got = [r[0] for r in rows]
+        if i == 1 and got != [r[0] for r in first]:
+            fail("vector ivf: the first search's rows changed")
+        hits += len(set(got) & set(l2_oracle(stored64, vec_query(q),
+                                             VEC_K)))
+    recall = hits / (VEC_K * VEC_QUERIES)
+    ms["ivf"] = ivf_warm[0]
+    if mu.VECTOR_SEARCH.labels("ivf").value < VEC_QUERIES:
+        fail("vector ivf: the searches did not take the IVF path")
+    log(f"vector ivf: recall@{VEC_K} {recall:.4f} over {VEC_QUERIES} "
+        f"queries at nprobe 8 (gate {VEC_RECALL}); warm {ms['ivf']:.3f} "
+        f"ms vs exact {ms['exact_l2']:.3f} ms: IVF/exact rate "
+        f"{ms['exact_l2'] / ms['ivf']:.2f}x ({card})")
+    if recall < VEC_RECALL:
+        fail(f"vector ivf: recall@{VEC_K} {recall} < {VEC_RECALL}")
+    # a stream of inserts: the resident matrix patches its tail, the
+    # index folds the new rows, and they are found
+    app0 = mu.VECTOR_INDEX_DELTA.labels("applied").value
+    reb0 = mu.VECTOR_INDEX_DELTA.labels("rebuild").value
+    patches = 0
+    for j in range(VEC_INSERTS):
+        base = VEC_ROWS + 100 * j
+        new = stored[(base + np.arange(100)) % VEC_ROWS] + np.float32(0.5)
+        tk.must_exec("insert into vcorpus values " + ",".join(
+            f"({base + r}, {(base + r) % 100}, '{vec_text(v)}')"
+            for r, v in enumerate(new)))
+        for metric, where in (("vec_l2_distance", ""),
+                              ("vec_l2_distance", "where grp = 7 ")):
+            phase.reset()
+            q = new[7]
+            got = tk.must_query(sql_for(q, metric, where)).rows
+            snap = phase.snap()
+            patches += snap.get("delta_applies", 0)
+            if got[0][0] != base + 7:
+                fail(f"vector insert {j}: the new row {base + 7} is not "
+                     f"first in {got}")
+        tk.must_exec("set @@tidb_tpu_vector_nprobe = 0")
+        phase.reset()
+        got = tk.must_query(sql_for(new[3])).rows
+        patches += phase.snap().get("delta_applies", 0)
+        tk.must_exec("set @@tidb_tpu_vector_nprobe = 8")
+        if got[0][0] != base + 3:
+            fail(f"vector insert {j}: exact search missed row {base + 3}")
+    applied = mu.VECTOR_INDEX_DELTA.labels("applied").value - app0
+    rebuilt = mu.VECTOR_INDEX_DELTA.labels("rebuild").value - reb0
+    log(f"vector inserts: {VEC_INSERTS} x 100 rows; vector/delta patches "
+        f"{patches}, index folds {applied}, rebuilds {rebuilt}")
+    if patches < 1 or applied < 1 or rebuilt:
+        fail("vector inserts did not fold through the delta paths")
+    f1 = fallbacks(dom)
+    if f1 != f0:
+        fail(f"vector: fallback counters moved {f0} -> {f1}")
+    return {"ms": ms, "programs": vector_programs(tk, index, queries,
+                                                  card),
+            "recall": recall}
+
+
+def vector_programs(tk, index, queries, card):
+    """Each vector program's device time at the phase's shapes (CUDA
+    events, warm median after a 1 GiB flush), beside its bound: the top-k
+    and IVF programs read their inputs once (bytes at HBM_BYTES_PER_S);
+    the k-means step and the assignment do 2 * rows * dim * lists
+    float32 operations (FP32_FLOPS, no TF32); the tail patch copies the
+    buffer (read and write) and writes its delta."""
+    import numpy as np
+    import torch
+    from tidb_tpu_torch.chunk.device import shape_bucket
+    from tidb_tpu_torch.vector import kernels as vk
+    from tidb_tpu_torch.vector.runtime import _kcap
+    dom = tk.domain
+    copr = dom.copr
+    tbl = dom.infoschema().table_by_name("test", "vcorpus")
+    ctab = copr.engine.table(tbl)
+    cid = tbl.find_column("e").id
+    dmat, n, cap = dom.vector.device_matrix(copr, ctab, cid, VEC_DIM)
+    valid = torch.zeros(cap, dtype=torch.bool, device="cuda")
+    valid[:n] = True
+    q = torch.from_numpy(queries[0]).cuda()
+    flush = torch.ones(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    kcap = _kcap(VEC_K, n)
+    out = []
+
+    def rec(name, src, replaces, per_stmt, fn, bound_ms, by, library=None):
+        t = time_ms(fn, iters=10, flush=flush)
+        lib = None if library is None else time_ms(library, iters=10,
+                                                   flush=flush)
+        out.append({"name": name, "source": src, "replaces": replaces,
+                    "launches_per_statement": per_stmt, "ms": t,
+                    "bound_ms": bound_ms, "bound_by": by,
+                    "library_ms": lib})
+        log(f"program {name}: {t:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({by}), {per_stmt}" +
+            ("" if lib is None else f", library {lib:.4f} ms") +
+            f" ({card})")
+    topk = vk.build_topk_kernel("vec_l2_distance", kcap)
+    rec("exact_topk", "tidb_tpu_torch/vector/kernels.py:build_topk_kernel",
+        "tidb_tpu/vector/kernels.py:58", "1 per exact search",
+        lambda: topk(dmat, valid, q),
+        (cap * VEC_DIM * 4 + cap) / HBM_BYTES_PER_S * 1e3, "bytes",
+        library=lambda: torch.topk(torch.cdist(dmat, q[None])[:, 0],
+                                   kcap, largest=False))
+    cand_np = index.candidates(queries[0], "vec_l2_distance", 8)
+    ccap = shape_bucket(len(cand_np))
+    cand = torch.zeros(ccap, dtype=torch.int32, device="cuda")
+    cand[:len(cand_np)] = torch.from_numpy(cand_np.astype(np.int32)).cuda()
+    cval = torch.zeros(ccap, dtype=torch.bool, device="cuda")
+    cval[:len(cand_np)] = True
+    ivf = vk.build_ivf_score_kernel("vec_l2_distance",
+                                    _kcap(VEC_K, len(cand_np)))
+    rec("ivf_score", "tidb_tpu_torch/vector/kernels.py:"
+        "build_ivf_score_kernel", "tidb_tpu/vector/kernels.py:73",
+        f"1 per IVF search ({len(cand_np)} candidates)",
+        lambda: ivf(dmat, cand, cval, q),
+        (len(cand_np) * (VEC_DIM * 4 + 5)) / HBM_BYTES_PER_S * 1e3,
+        "bytes")
+    cent = torch.from_numpy(index.centroids).cuda()
+    nlist = cent.shape[0]
+    step = vk.build_kmeans_step()
+    flops = 2 * cap * VEC_DIM * nlist
+    rec("kmeans_step", "tidb_tpu_torch/vector/kernels.py:build_kmeans_step"
+        " (index_add_ into float64)", "tidb_tpu/vector/kernels.py:89",
+        "8 per index build", lambda: step(dmat, valid, cent),
+        flops / FP32_FLOPS * 1e3, "operations")
+    assign = vk.build_assign_kernel()
+    rec("assign", "tidb_tpu_torch/vector/kernels.py:build_assign_kernel",
+        "tidb_tpu/vector/kernels.py:111", "1 per posting build or "
+        "fold of >= 4096 rows", lambda: assign(dmat[:n], cent),
+        2 * n * VEC_DIM * nlist / FP32_FLOPS * 1e3, "operations")
+    upd = torch.zeros((128, VEC_DIM), dtype=torch.float32, device="cuda")
+    rec("tail_patch", "tidb_tpu_torch/vector/kernels.py:patch_rows",
+        "tidb_tpu/vector/runtime.py:253", "1 per search after an insert",
+        lambda: vk.patch_rows(dmat, upd, n - 128),
+        (2 * cap * VEC_DIM * 4 + upd.numel() * 8) / HBM_BYTES_PER_S * 1e3,
+        "bytes")
+    del flush
+    return out
+
+
+# ---- in-SQL inference (ROADMAP A.8) --------------------------------------
+# predict() fused in a filter over SF1 lineitem (a ReLU MLP 4 -> 256 ->
+# 128 -> 1) and standalone over orders (2 -> 64 -> 1); weights from the
+# seed, the first layer scaled by each feature's magnitude so that the
+# scores are of order 1, the last bias set so that about half the rows
+# pass the filter.
+ML_FUSED = ("select sum(l_extendedprice), count(*) from lineitem where "
+            "predict(m, l_quantity, l_extendedprice, l_discount, l_tax) > 0")
+ML_STANDALONE = ("select o_orderkey, predict(m2, o_totalprice, "
+                 "o_shippriority) from orders")
+ML_FEATURES = {"m": (("l_quantity", 25.5), ("l_extendedprice", 38000.0),
+                     ("l_discount", 0.05), ("l_tax", 0.04)),
+               "m2": (("o_totalprice", 150000.0), ("o_shippriority", 1.0))}
+ML_LAYERS = {"m": (4, 256, 128, 1), "m2": (2, 64, 1)}
+
+
+def ml_features(tk, model, table):
+    """The model's feature matrix as _op_predict builds it on the host:
+    each column's stored int64 (decimals scaled) to float64, divided by
+    its scale, to float32."""
+    import numpy as np
+    from tidb_tpu_torch.types.field_type import TypeClass
+    dom = tk.domain
+    tbl = dom.infoschema().table_by_name("test", table)
+    ctab = dom.columnar.tables[tbl.id]
+    cols = []
+    for name, _s in ML_FEATURES[model]:
+        ci = tbl.find_column(name)
+        a = ctab.data[ci.id][:ctab.n].astype(np.float64)
+        scale = max(ci.ft.decimal, 0) \
+            if ci.ft.tclass == TypeClass.DECIMAL else 0
+        cols.append((a / float(10 ** scale)).astype(np.float32))
+    return np.stack(cols, axis=1)
+
+
+def ml_weights(tk, model, table):
+    """Seeded weights; the last bias centres the scores of the table's
+    rows on 0."""
+    import numpy as np
+    from tidb_tpu_torch.ml.kernels import host_forward
+    rng = np.random.default_rng([SEED, len(model)])
+    dims = ML_LAYERS[model]
+    ws = [(rng.standard_normal((a, b)) / np.sqrt(a)).astype(np.float32)
+          for a, b in zip(dims, dims[1:])]
+    ws[0] = (ws[0] / np.array([s for _n, s in ML_FEATURES[model]],
+                              dtype=np.float32)[:, None]).astype(np.float32)
+    bs = [(rng.standard_normal(b) * 0.1).astype(np.float32)
+          for b in dims[1:]]
+    X = ml_features(tk, model, table)
+    y = host_forward(X[::7], ws, bs)
+    bs[-1] = (bs[-1] - np.float32(np.median(y))).astype(np.float32)
+    return ws, bs
+
+
+def ml_run(tk, guard, sql, label, nparts, checked=False):
+    """cold once, WARM_RUNS warm, then (checked) one more with every
+    kernel call held to its plain version on the same tensors. Warm: one
+    dispatch and one sync per partition of its fragment (standalone:
+    one of each), under the sync guard, no upload (weights, features).
+    -> (rows of the last run, warm median ms, checked calls)."""
+    from tidb_tpu_torch.utils import phase
+    syncs_per = nparts if tk.domain.copr.device.type == "cuda" else 0
+    warm, calls, rows = [], [], None
+    for i in range(2 + WARM_RUNS if checked else 1 + WARM_RUNS):
+        g0 = guard.calls
+        phase.reset()
+        t0 = time.perf_counter()
+        if i == 1 + WARM_RUNS:
+            res, calls = checked_kernels(lambda: tk.must_query(sql))
+        else:
+            res = tk.must_query(sql)
+        ms = (time.perf_counter() - t0) * 1e3
+        snap = phase.snap()
+        rows = res.rows
+        disp, syncs = snap.get("dispatches", 0), snap.get("syncs", 0)
+        if guard.calls - g0 != disp:
+            fail(f"ml {label} run {i}: {disp} dispatches, "
+                 f"{guard.calls - g0} under the sync guard")
+        if i and (disp != nparts or syncs != syncs_per or
+                  snap.get("upload_bytes", 0)):
+            fail(f"ml {label} warm run {i}: {phase_line(snap)}; expected "
+                 f"{nparts} dispatches and syncs, no upload")
+        if 0 < i <= WARM_RUNS:
+            warm.append(ms)
+        log(f"ml {label} {'warm' if i else 'cold'} {ms:.2f} ms "
+            f"{phase_line(snap)} ml_rows={snap.get('ml_rows', 0)}")
+    return rows, statistics.median(warm), calls
+
+
+def cents(v):
+    from decimal import Decimal
+    return int(Decimal(str(v)) * 100)
+
+
+def ulp32(x):
+    import numpy as np
+    return np.spacing(np.abs(np.float32(x)).astype(np.float32))
+
+
+def phase_ml(tk, guard, card, nparts):
+    """CREATE MODEL from npz files the phase writes from the seed, then
+    predict() fused in a filter over SF1 lineitem (the fused fragment;
+    masked_sums once per partition, held to its plain version) and
+    standalone over the 1,500,000 orders (MLPredictExec). The fused sum
+    and count equal the host twin's (copr.use_device = False), but for
+    rows whose score the card and the host put on two sides of 0, each
+    of which must lie within 4 ulp of 0 at the scale of its last layer's
+    terms (named in the log); standalone values within rtol 1e-5 of the
+    host twin's. -> {"ms": ..., "programs": [...]}."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from tidb_tpu_torch.expression import vec as _vec
+    from tidb_tpu_torch.ml.kernels import host_forward
+    from tidb_tpu_torch.utils import metrics as mu
+    dom = tk.domain
+    copr = dom.copr
+    f0 = fallbacks(dom)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ml_")
+    models = {}
+    try:
+        for model, table in (("m", "lineitem"), ("m2", "orders")):
+            ws, bs = ml_weights(tk, model, table)
+            path = os.path.join(tmp, model + ".npz")
+            np.savez(path, **{f"W{i}": w for i, w in enumerate(ws)},
+                     **{f"b{i}": b for i, b in enumerate(bs)})
+            tk.must_exec(f"create model {model} from '{path}'")
+            models[model] = (ws, bs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ms = {}
+    # fused: record each fragment call's scores (device tensors, read
+    # after the statement)
+    scores = []
+    orig = _vec._REGISTRY["predict"]
+
+    def recording(ctx, e):
+        out = orig(ctx, e)
+        if not ctx.host:
+            scores.append(out[0])
+        return out
+    _vec._REGISTRY["predict"] = recording
+    try:
+        m0 = dom.metrics.get("fused_pipeline_hit", 0)
+        scores.clear()
+        rows, ms["fused"], calls = ml_run(tk, guard, ML_FUSED, "fused",
+                                          nparts, checked=True)
+        if dom.metrics.get("fused_pipeline_hit", 0) - m0 != 2 + WARM_RUNS:
+            fail("ml fused: the statement did not run as a fused fragment")
+        if len(scores) != (2 + WARM_RUNS) * nparts:
+            fail(f"ml fused: {len(scores)} predict() calls in fragments, "
+                 f"expected one per partition and statement")
+        last = [s.float().cpu().numpy() for s in scores[-nparts:]]
+    finally:
+        _vec._REGISTRY["predict"] = orig
+    ms_calls = [c for c in calls if c[0] == "masked_sums"]
+    if len(ms_calls) != nparts:
+        fail(f"ml fused: {len(ms_calls)} checked masked_sums calls, "
+             f"expected {nparts}")
+    log("ml fused: kernel calls == plain versions on the same tensors: "
+        + "; ".join(f"{n} {s}" for n, s in calls))
+    twin, ms["fused_host_twin"] = host_twin(tk, ML_FUSED)
+    ws, bs = models["m"]
+    X = ml_features(tk, "m", "lineitem")
+    n = len(X)
+    y = host_forward(X, ws, bs)
+    step = copr.device_rows
+    dev_y = np.concatenate([s[:min(step, n - k * step)]
+                            for k, s in enumerate(last)])
+    flips = np.nonzero((dev_y > 0) != (y > 0))[0]
+    h = X[flips]
+    for W, b in zip(ws[:-1], bs[:-1]):
+        h = np.maximum(h @ W + b, np.float32(0))
+    terms = np.abs(h * ws[-1][:, 0]).sum(1) + abs(float(bs[-1][0]))
+    for r, yh, yd, s in zip(flips, y[flips], dev_y[flips], terms):
+        log(f"ml fused: row {r} score host {yh!r} card {yd!r} (4 ulp of its "
+            f"terms {4 * ulp32(s)!r})")
+        if abs(yh) > 4 * ulp32(s):
+            fail(f"ml fused: row {r} changes sides of 0 at host score {yh}")
+    price = ml_price(tk)
+    adj_cnt = int((dev_y[flips] > 0).sum()) - int((y[flips] > 0).sum())
+    adj_sum = int(price[flips][dev_y[flips] > 0].sum()) - \
+        int(price[flips][y[flips] > 0].sum())
+    want_cnt = int((y > 0).sum()) + adj_cnt
+    got_sum = cents(rows[0][0])
+    twin_sum = cents(twin[0][0])
+    if int(rows[0][1]) != int(twin[0][1]) + adj_cnt or \
+            got_sum != twin_sum + adj_sum or int(rows[0][1]) != want_cnt:
+        fail(f"ml fused: {rows} != host twin {twin} adjusted by the "
+             f"{len(flips)} rows at 0 ({adj_cnt}, {adj_sum})")
+    log(f"ml fused: {rows} == host twin {twin} (adjusted by {len(flips)} "
+        f"rows at 0); warm {ms['fused']:.3f} ms, host twin "
+        f"{ms['fused_host_twin']:.1f} ms ({card})")
+    # standalone
+    m0 = mu.ML_PREDICT.labels("device").value
+    rows, ms["standalone"], _c = ml_run(tk, guard, ML_STANDALONE,
+                                        "standalone", 1)
+    if mu.ML_PREDICT.labels("device").value - m0 != 1 + WARM_RUNS:
+        fail("ml standalone: the statement did not run MLPredictExec on "
+             "the card")
+    twin, ms["standalone_host_twin"] = host_twin(tk, ML_STANDALONE)
+    got = np.array([r[1] for r in rows], dtype=np.float64)
+    want = np.array([r[1] for r in twin], dtype=np.float64)
+    if [r[0] for r in rows] != [r[0] for r in twin]:
+        fail("ml standalone: row order differs from the host twin")
+    scale = float(np.median(np.abs(want)))
+    err = np.abs(got - want)
+    bad = err > 1e-5 * np.maximum(np.abs(want), scale)
+    if bad.any():
+        fail(f"ml standalone: {int(bad.sum())} values off the host twin by "
+             f"more than rtol 1e-5 (max {err.max()})")
+    log(f"ml standalone: {len(rows)} values within rtol 1e-5 of the host "
+        f"twin (max abs err {err.max():.3g}, median |y| {scale:.3g}); "
+        f"warm {ms['standalone']:.3f} ms, host twin "
+        f"{ms['standalone_host_twin']:.1f} ms ({card})")
+    f1 = fallbacks(dom)
+    if f1 != f0:
+        fail(f"ml: fallback counters moved {f0} -> {f1}")
+    return {"ms": ms, "programs": ml_programs(tk, models, card, step)}
+
+
+def ml_programs(tk, models, card, step):
+    """The forward program's device time at both statements' shapes
+    (CUDA events after a 1 GiB flush) beside its bound: 2 * rows *
+    sum(in * out) float32 operations at FP32_FLOPS."""
+    import torch
+    from tidb_tpu_torch.ml.kernels import build_forward_kernel
+    flush = torch.ones(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    programs = []
+    for model, table, rows_, per in (
+            ("m", "lineitem", step, "1 per partition, in the fused "
+             "fragment"), ("m2", "orders", None, "1 per statement")):
+        ws, bs = models[model]
+        Xt = torch.from_numpy(ml_features(tk, model, table)[:rows_]).cuda()
+        dws = [torch.from_numpy(w).cuda() for w in ws]
+        dbs = [torch.from_numpy(b).cuda() for b in bs]
+        kern = build_forward_kernel(len(ws))
+        t = time_ms(lambda: kern(Xt, *dws, *dbs), iters=10, flush=flush)
+        flops = 2 * len(Xt) * sum(w.shape[0] * w.shape[1] for w in ws)
+        programs.append({
+            "name": f"forward_{model}", "source":
+            "tidb_tpu_torch/ml/kernels.py:build_forward_kernel",
+            "replaces": "tidb_tpu/ml/kernels.py:46",
+            "launches_per_statement": per, "rows": len(Xt),
+            "layers": list(ML_LAYERS[model]), "ms": t,
+            "bound_ms": flops / FP32_FLOPS * 1e3, "bound_by": "operations",
+            "library_ms": None})
+        log(f"program forward_{model} {list(ML_LAYERS[model])} over "
+            f"{len(Xt)} rows: {t:.4f} ms, bound "
+            f"{flops / FP32_FLOPS * 1e3:.4f} ms (operations) ({card})")
+    del flush
+    return programs
+
+
+def ml_price(tk):
+    """l_extendedprice in cents (the fused statement's SUM argument)."""
+    dom = tk.domain
+    tbl = dom.infoschema().table_by_name("test", "lineitem")
+    ctab = dom.columnar.tables[tbl.id]
+    return ctab.data[tbl.find_column("l_extendedprice").id][:ctab.n]
+
+
 class WireClient:
     """A raw-socket MySQL 4.1 client: handshake v10 with
     mysql_native_password, COM_QUERY and text result sets. The wire
@@ -1496,8 +2172,20 @@ def main():
         t0 = time.perf_counter()
         exec_ms = counted("executor", lambda: phase_executor(
             tk, exp_exec, guard, card), folds=False, kernels=())
-    log(f"executor phase {time.perf_counter() - t0:.1f} s; "
-        f"{json.dumps(exec_ms)}; {guard.calls} fragment enqueues and "
+        log(f"executor phase {time.perf_counter() - t0:.1f} s; "
+            f"{json.dumps(exec_ms)}")
+        t0 = time.perf_counter()
+        vec = counted("vector", lambda: phase_vector(tk, guard, card),
+                      folds=False, kernels=())
+        log(f"vector phase {time.perf_counter() - t0:.1f} s; warm ms "
+            f"{json.dumps(vec['ms'])}; recall@{VEC_K} {vec['recall']}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ml = counted("ml", lambda: phase_ml(tk, guard, card, nparts),
+                     folds=False, kernels=("masked_sums",))
+        log(f"ml phase {time.perf_counter() - t0:.1f} s; warm ms "
+            f"{json.dumps(ml['ms'])}")
+    log(f"{guard.calls} fragment and program enqueues and "
         f"{sum(guard.hook_calls.values())} hook calls "
         f"({json.dumps(guard.hook_calls)}) ran under "
         "set_sync_debug_mode('error')")
@@ -1524,6 +2212,8 @@ def main():
             rec["replaced_path_ms"] = r[8]
             rec["product_pairs_by_path"] = pairs_by_path
         kernels.append(rec)
+    print(json.dumps({"programs": vec["programs"] + ml["programs"],
+                      "card": card}), flush=True)
     log(f"card: {card}")
     log(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -352,3 +352,134 @@ def test_hook_programs_match_cpu_on_card():
                                              semi_only=semi)
         for a, b in zip(got, want):
             assert (a is None and b is None) or np.array_equal(a, b)
+
+
+# ---- vector search and in-SQL inference ---------------------------------
+
+def test_tf32_off_on_card():
+    """float32 products run in full float32 on the card (TF32 keeps
+    about three digits): both switches off, matmul precision highest."""
+    import tidb_tpu_torch.utils.torchcfg  # noqa: F401
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_vector_and_forward_programs_match_cpu_on_card():
+    """The top-k, IVF score, k-means step, assign, tail patch and forward
+    programs on CUDA tensors against the same programs on the CPU, with
+    NaN (NULL) rows, dead rows, duplicated rows and a zero vector: keys
+    within rtol 1e-5 and positions equal where a key is separated from
+    the next, exact ties by the lowest row, assignments equal on
+    well-separated clusters (an all-NaN row takes centroid 0), each
+    enqueued with no wait on the card. The top-k inputs lie around the
+    origin and the query is not close to any row: L2 in matmul form
+    loses digits to cancellation where a distance is small against the
+    norms (far-off clusters, a query next to a row), and the executor's
+    float64 re-rank, not the key, decides the rows there. The 500 copies
+    of row 7, nearest to the query, straddle the 256th key."""
+    from tidb_tpu_torch.ml import kernels as mk
+    from tidb_tpu_torch.vector import kernels as vk
+    rng = np.random.default_rng(19)
+    n, dim = 200_003, 16
+    centers = rng.standard_normal((32, dim)).astype(np.float32) * 20
+    mat = (centers[rng.integers(0, 32, n)] +
+           rng.standard_normal((n, dim)) * 0.3).astype(np.float32)
+    mat[rng.choice(n, 500, replace=False)] = mat[7]     # ties with row 7
+    mat[rng.choice(n, 50, replace=False)] = np.nan
+    mat[11] = 0.0
+    valid = rng.random(n) > 0.05
+    near = rng.standard_normal((n, dim)).astype(np.float32)
+    near[np.isnan(mat[:, 0])] = np.nan
+    near[rng.choice(n, 500, replace=False)] = near[7]
+    near[11] = 0.0
+    q = near[7] + rng.standard_normal(dim).astype(np.float32) * 0.5
+
+    def both(fn, *arrays):
+        out = []
+        for dev in ("cuda", "cpu"):
+            args = [_t(a).to(dev) if isinstance(a, np.ndarray) else a
+                    for a in arrays]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out.append([r.cpu() for r in (res if isinstance(res, tuple)
+                                          else (res,))])
+        return out
+
+    def same_slate(g, c):
+        torch.testing.assert_close(g[0], c[0], rtol=1e-5, atol=0)
+        k = c[0].numpy()
+        gap = np.abs(np.diff(k)) > 1e-5 * np.maximum(np.abs(k[1:]), 1e-30)
+        sep = np.concatenate([[True], gap]) & np.concatenate([gap, [True]])
+        sep |= ~np.isfinite(k) | np.concatenate(
+            [[False], k[1:] == k[:-1]]) | np.concatenate(
+            [k[:-1] == k[1:], [False]])
+        assert sep.mean() > 0.5
+        assert torch.equal(g[1][torch.from_numpy(sep)],
+                           c[1][torch.from_numpy(sep)])
+
+    for metric in ("vec_l2_distance", "vec_cosine_distance",
+                   "vec_negative_inner_product"):
+        for qq in (q, np.zeros(dim, np.float32)):
+            g, c = both(vk.build_topk_kernel(metric, 256), near, valid, qq)
+            same_slate(g, c)
+        cand = rng.choice(n, 30_000, replace=False).astype(np.int32)
+        g, c = both(vk.build_ivf_score_kernel(metric, 256), near, cand,
+                    valid[cand], q)
+        same_slate(g, c)
+    live = valid & ~np.isnan(mat[:, 0])
+    cent = centers + np.float32(0.5)
+    g, c = both(vk.build_kmeans_step(), mat, live, cent)
+    torch.testing.assert_close(g[0], c[0], rtol=1e-5, atol=1e-5)
+    g, c = both(vk.build_assign_kernel(), mat, centers)
+    assert torch.equal(g[0], c[0])
+    assert (c[0].numpy()[np.isnan(mat[:, 0])] == 0).all()
+    g, c = both(lambda b, u: vk.patch_rows(b, u, 1000), mat, mat[:77])
+    torch.testing.assert_close(g[0], c[0], rtol=0, atol=0, equal_nan=True)
+    ws = [rng.standard_normal((4, 256)).astype(np.float32) * 0.3,
+          rng.standard_normal((256, 128)).astype(np.float32) * 0.1,
+          rng.standard_normal((128, 1)).astype(np.float32) * 0.1]
+    bs = [rng.standard_normal(w.shape[1]).astype(np.float32) for w in ws]
+    X = rng.standard_normal((n, 4)).astype(np.float32)
+    g, c = both(mk.build_forward_kernel(3), X, *ws, *bs)
+    torch.testing.assert_close(g[0], c[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("site", ["vector/topk", "ml/predict"])
+def test_vector_ml_grant_loss_fails_statement_on_card(site, tmp_path):
+    """On the card a degraded vector or inference program fails its
+    statement (no host twin carries on); without the failpoint the
+    same statement gives the CPU's rows."""
+    from tidb_tpu_torch.errors import DeviceUnavailableError
+    from tidb_tpu_torch.testkit import TestKit
+    from tidb_tpu_torch.utils import failpoint
+    rng = np.random.default_rng(23)
+    npz = str(tmp_path / "m.npz")
+    np.savez(npz, W0=rng.standard_normal((2, 8)).astype(np.float32),
+             b0=rng.standard_normal(8).astype(np.float32),
+             W1=rng.standard_normal((8, 1)).astype(np.float32))
+    kits = TestKit(), TestKit(device="cpu")
+    for kit in kits:
+        kit.must_exec("create table t (id int primary key, a double, "
+                      "b double, e vector(3))")
+        kit.must_exec("insert into t values " + ",".join(
+            f"({i}, {i * 0.25}, {i % 5}, '[{i % 7},{i % 3},1]')"
+            for i in range(300)))
+        kit.must_exec(f"create model m from '{npz}'")
+    sql = {"vector/topk": "select id from t order by "
+                          "vec_l2_distance(e, '[2,1,1]') limit 5",
+           "ml/predict": "select id, predict(m, a, b) from t order by id"
+           }[site]
+    gpu, cpu = kits
+    failpoint.enable(f"device_guard/{site}", "error:grant_lost")
+    with pytest.raises(DeviceUnavailableError, match="grant_lost"):
+        gpu.must_query(sql)
+    failpoint.disable_all()
+    got, want = gpu.must_query(sql).rows, cpu.must_query(sql).rows
+    assert [r[0] for r in got] == [r[0] for r in want]
+    for g, w in zip(got, want):
+        for a, b in zip(g[1:], w[1:]):
+            assert abs(a - b) <= 1e-5 * abs(b) + 1e-6

@@ -199,3 +199,53 @@ def test_case_without_null_branches_has_no_null_mask():
     ctx = PORT.EvalCtx(TorchNS("cpu"), N, _cols(PORT, True), host=False)
     d, nl, _ = PORT.eval_expr(ctx, e)
     assert nl is None and d.dtype == torch.int64
+
+
+def _predict_expr(root, P):
+    """predict(m, a, price, disc) with a seeded 3 -> 16 -> 8 -> 1 ReLU
+    MLP, bound as each package's rewriter binds it (an MLFunc over a
+    ModelHandle)."""
+    low = importlib.import_module(root + ".ml.lowering")
+    reg = importlib.import_module(root + ".ml.registry")
+    models = importlib.import_module(root + ".models")
+    ty = importlib.import_module(root + ".types")
+    rng = np.random.default_rng(31)
+    dims = [3, 16, 8, 1]
+    ws = [(rng.standard_normal((a, b)) * 0.5).astype(np.float32)
+          for a, b in zip(dims, dims[1:])]
+    bs = [rng.standard_normal(b).astype(np.float32) for b in dims[1:]]
+    info = models.ModelInfo(id=1, name="m", uri="", kind="mlp",
+                            params={"in_dim": 3, "out_dim": 1}, version=1,
+                            public=True)
+    h = reg.ModelHandle(info, ws, bs)
+    return low.MLFunc(op="predict", args=[C(P, 0), C(P, 1), C(P, 2)],
+                      ft=ty.new_double_type(), model=h)
+
+
+def test_torch_predict_matches_numpy():
+    """predict() (in TORCH_OPS) over an int, a decimal(15,2) and a
+    NULL-bearing column: values within rtol 1e-5 of the numpy EvalCtx's
+    (float32 products on both sides), NULL masks exact, and
+    `predict(...) > 0` equal away from a zero score."""
+    from tidb_tpu_torch.expression.torch_ns import TorchNS, ops_of, \
+        TORCH_OPS
+    ref_e, port_e = _predict_expr("tidb_tpu", REF), \
+        _predict_expr("tidb_tpu_torch", PORT)
+    assert ops_of(port_e) <= TORCH_OPS
+    ref_ctx = REF.EvalCtx(np, N, _cols(REF, False), host=True)
+    port_ctx = PORT.EvalCtx(TorchNS("cpu"), N, _cols(PORT, True),
+                            host=False)
+    rd, rn, _ = REF.eval_expr(ref_ctx, ref_e)
+    pd, pn, _ = PORT.eval_expr(port_ctx, port_e)
+    rnm = _as_np(REF.nulls(ref_ctx, rn), N)
+    np.testing.assert_array_equal(_as_np(PORT.nulls(port_ctx, pn), N), rnm)
+    assert rnm.any() and not rnm.all()
+    pd = pd.numpy()
+    assert pd.dtype == np.float64
+    np.testing.assert_allclose(pd[~rnm], np.asarray(rd)[~rnm], rtol=1e-5,
+                               atol=0)
+    gt = lambda P, e: P.F(">", [e, P.c(0)], P.i)   # noqa: E731
+    rm = np.asarray(REF.eval_bool_mask(ref_ctx, gt(REF, ref_e)))
+    pm = PORT.eval_bool_mask(port_ctx, gt(PORT, port_e)).numpy()
+    away = np.abs(np.asarray(rd)) > 1e-4
+    np.testing.assert_array_equal(pm[away], rm[away])

@@ -1,7 +1,8 @@
 """tidb_tpu_torch stands alone: it runs SQL (TPC-H Q6; Q3, fused
 with its dimension probes; Q17, with a materialized dimension; a
 reader-DAG top-n; an ORDER BY, a window function and a hash join through
-the executor's device hooks), its range lowering and its
+the executor's device hooks; an exact vector search; CREATE MODEL and
+predict(), standalone and fused in a filter), its range lowering and its
 wire server with jax and tidb_tpu blocked from import, no module of it
 (nor chip_smoke.py) imports them,
 and its entry points refuse to run on the host unless asked to."""
@@ -75,6 +76,31 @@ jn = tk.must_query("select o_orderkey, c_name from orders join customer on "
 assert {c: m.get(c, 0) - n for c, n in hooks0.items()} == \
     {"sort_device": 1, "window_device": 1, "device_join": 1}, m
 assert len(srt) == 15000 and int(win[0][0]) > 0 and jn, (win, len(jn))
+# vector search: an exact top-k through the vector runtime
+tk.must_exec("create table docs (id bigint primary key, e vector(3))")
+tk.must_exec("insert into docs values (1, '[0,0,1]'), (2, '[5,5,5]'), "
+             "(3, '[0,1,1]'), (4, null)")
+vs = "select id from docs order by vec_l2_distance(e, '[0,0,1]') limit 3"
+assert "VectorSearch" in str(tk.must_query("explain " + vs).rows)
+assert [r[0] for r in tk.must_query(vs).rows] == [4, 1, 3]
+# in-SQL inference: CREATE MODEL, predict() standalone and fused
+import tempfile
+import numpy as np
+npz = os.path.join(tempfile.mkdtemp(), "m.npz")
+np.savez(npz, coef=np.array([1.0, -1.0], dtype=np.float32),
+         intercept=np.array([0.5], dtype=np.float32))
+tk.must_exec(f"create model lin from '{npz}'")
+pr = tk.must_query("select o_orderkey, predict(lin, o_shippriority, "
+                   "o_custkey) from orders where o_orderkey < 10 "
+                   "order by o_orderkey").rows
+assert pr and all(abs(y - (0.5 - c)) < 1e-3 for (_k, y), c in zip(
+    pr, [r[0] for r in tk.must_query(
+        "select o_custkey from orders where o_orderkey < 10 order by "
+        "o_orderkey").rows])), pr
+cnt = tk.must_query("select count(*) from orders where predict(lin, "
+                    "o_shippriority, o_custkey) > -100").rows
+assert cnt == tk.must_query("select count(*) from orders where "
+                            "o_custkey < 100.5").rows, cnt
 srv.shutdown()
 st.shutdown()
 bad = [m for m in sys.modules if m in ("jax", "jaxlib", "tidb_tpu")
@@ -122,7 +148,8 @@ def _sources():
 def test_no_jax_or_reference_imports():
     paths = [os.path.relpath(p, ROOT) for p in _sources()]
     for hook in ("executor/sort_device.py", "executor/window_device.py",
-                 "ops/device_join.py"):
+                 "ops/device_join.py", "vector/runtime.py",
+                 "vector/kernels.py", "ml/runtime.py", "ml/kernels.py"):
         assert os.path.join("tidb_tpu_torch", hook) in paths
     found = []
     for path in _sources():
@@ -143,9 +170,7 @@ def test_testkit_refuses_host_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("sql", [
     "backup database test to 'local:///nonexistent-dir'",
-    "create model m from '/nonexistent.npz'",
-    "create vector index vi on v (e) using ivf",
-    "select predict(m, a) from v",
+    "admin changefeed create cf sink 'replica://r1'",
 ])
 def test_unported_surfaces_fail_clearly(sql):
     """A statement that needs a surface the port does not carry yet
@@ -156,3 +181,35 @@ def test_unported_surfaces_fail_clearly(sql):
     tk.must_exec("create table v (id int primary key, a int, e vector(3))")
     with pytest.raises(UnsupportedError, match="not yet ported"):
         tk.must_exec(sql)
+
+
+@pytest.mark.parametrize("case", ["create_model", "vector_index",
+                                  "predict"])
+def test_ported_surfaces_run(case, tmp_path):
+    """Vector indexes, CREATE MODEL and predict() run and give their
+    result."""
+    import numpy as np
+    from tidb_tpu_torch.testkit import TestKit
+    tk = TestKit(device="cpu")
+    tk.must_exec("create table v (id int primary key, a int, e vector(3))")
+    tk.must_exec("insert into v values (1, 2, '[1,0,0]'), "
+                 "(2, 5, '[0,1,0]'), (3, 7, '[0,0,1]')")
+    npz = str(tmp_path / "m.npz")
+    np.savez(npz, coef=np.array([2.0], dtype=np.float32),
+             intercept=np.array([1.0], dtype=np.float32))
+    if case == "vector_index":
+        tk.must_exec("create vector index vi on v (e) using ivf")
+        assert tk.must_query(
+            "select index_name, column_name from "
+            "information_schema.tidb_vector_indexes").rows == [("vi", "e")]
+        assert [r[0] for r in tk.must_query(
+            "select id from v order by vec_l2_distance(e, '[0,1,0]') "
+            "limit 1").rows] == [2]
+        return
+    tk.must_exec(f"create model m from '{npz}'")
+    if case == "create_model":
+        assert [r[:2] for r in tk.must_query("show models").rows] == \
+            [("m", "linear")]
+        return
+    assert tk.must_query("select id, predict(m, a) from v order by "
+                         "id").rows == [(1, 5.0), (2, 11.0), (3, 15.0)]

@@ -55,10 +55,14 @@ def _build(ctx, plan):
         return MergeJoinExec(ctx, plan,
                              build_executor(ctx, plan.children[0]),
                              build_executor(ctx, plan.children[1]))
-    from ..planner.physical import PhysVectorSearch, PhysMLPredict
-    if isinstance(plan, (PhysVectorSearch, PhysMLPredict)):
-        from ..unported import not_ported
-        raise not_ported(type(plan).__name__)
+    from ..planner.physical import PhysVectorSearch
+    if isinstance(plan, PhysVectorSearch):
+        from .vector_search import VectorSearchExec
+        return VectorSearchExec(ctx, plan)
+    from ..planner.physical import PhysMLPredict
+    if isinstance(plan, PhysMLPredict):
+        from .ml_predict import MLPredictExec
+        return MLPredictExec(ctx, plan)
     if isinstance(plan, PhysSort):
         return SortExec(ctx, plan, build_executor(ctx, plan.child))
     if isinstance(plan, PhysTopN):

@@ -58,6 +58,9 @@ TORCH_OPS = frozenset({
     "if", "ifnull", "coalesce",
     # the planner's rank recode around MIN/MAX of a string: a gather
     "_minmaxkey",
+    # in-SQL inference (ml/lowering.py): a float32 matmul chain over
+    # the model's resident weights
+    "predict",
 })
 
 
@@ -90,6 +93,7 @@ class TorchNS:
     bool_ = np.bool_
     int32 = np.int32
     int64 = np.int64
+    float32 = np.float32
     float64 = np.float64
     inf = np.inf
     nan = np.nan
@@ -286,6 +290,9 @@ class TorchNS:
         if v.dtype != s.dtype:
             s, v = self._pair(s, v)
         return torch.searchsorted(s, v, right=(side == "right"))
+
+    def stack(self, arrs, axis=0):
+        return torch.stack([self.asarray(a) for a in arrs], dim=axis)
 
     def cumsum(self, a, dtype=None):
         return torch.cumsum(self.asarray(a), 0,

@@ -2403,6 +2403,13 @@ def _vec_matrix(sdict):
     u = len(sdict.values)
     if cache is not None and cache[0] == u:
         return cache[1]
+    col = getattr(sdict, "_vecmat_cache", None)
+    if u and col is not None and col[1] == u and col[3] == col[2]:
+        # the column's parsed table (storage/columnar.py), whose longest
+        # value has its declared dimension: the same matrix, so a
+        # million-vector dictionary is not parsed a second time
+        sdict._vec_cache = (u, col[0])
+        return col[0]
     vecs = [_parse_vec_text(s) for s in sdict.values]
     d = max((len(v) for v in vecs if v is not None), default=0)
     mat = np.full((max(u, 1), max(d, 1)), np.nan, dtype=np.float32)
@@ -2461,11 +2468,16 @@ def _vec_binary(ctx, expr, kernel):
             return np.zeros(ctx.n), np.ones(ctx.n, dtype=bool), None
         if sd is not None:
             mat = _vec_matrix(sd)
+            codes = np.asarray(data)
             if mat.shape[1] != len(q):
-                tab = np.full(len(mat), np.nan)
+                vals = np.full(len(codes), np.nan)
+            elif 4 * len(codes) < len(mat):
+                # a few rows of a large dictionary (the vector search's
+                # re-rank): the row-wise kernel over their codes only
+                uc, inv = np.unique(codes, return_inverse=True)
+                vals = kernel(mat[uc], q)[inv.reshape(-1)]
             else:
-                tab = kernel(mat, q)
-            vals = tab[np.asarray(data)]
+                vals = kernel(mat, q)[codes]
             nm = np.asarray(materialize_nulls(ctx, nulls))
             return np.nan_to_num(vals), nm | np.isnan(vals), None
         # host object array of strings

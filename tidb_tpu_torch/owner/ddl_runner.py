@@ -517,8 +517,8 @@ class DDLJobRunner:
         """CREATE MODEL as a resumable job — the weight-blob/registry/
         publish ladder lives in ml/ddl.py; this runner contributes the
         durable queue, the step txns and restart re-entry."""
-        from ..unported import not_ported
-        raise not_ported("CREATE MODEL")
+        from ..ml import ddl as ml_ddl
+        ml_ddl.run_create_model_job(self, job, cancel_check)
 
     def _set_index_state(self, job, name, state):
         def step(m):
@@ -715,8 +715,8 @@ class DDLJobRunner:
                 from ..unported import not_ported
                 raise not_ported("RESTORE")
             elif job.type == TYPE_CREATE_MODEL:
-                from ..unported import not_ported
-                raise not_ported("CREATE MODEL")
+                from ..ml import ddl as ml_ddl
+                ml_ddl.rollback_create_model(self, job)
             # exchange partition / modify column apply in one terminal
             # txn — a rolling-back job has nothing durable to undo
             job.state = STATE_CANCELLED

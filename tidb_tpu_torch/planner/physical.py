@@ -917,16 +917,76 @@ def _phys(plan: LogicalPlan) -> PhysPlan:
 
 
 def _try_vector_search(plan: TopN, child) -> PhysVectorSearch | None:
-    """Vector search is not yet ported: `ORDER BY vec_*_distance(...)
-    LIMIT k` keeps the conventional TopN, whose host path computes the
-    same rows."""
-    return None
+    """Recognize `ORDER BY vec_*_distance(vector_col, const) LIMIT k`
+    (ascending = nearest-first) over a bare table scan and lower it to
+    PhysVectorSearch (vector/). Anything the vector runtime
+    cannot serve bit-identically — filters, DESC, unknown dimension,
+    a malformed or dimension-mismatched query constant (the host path
+    owns the clean ER there), partitioned/virtual tables — keeps the
+    conventional TopN."""
+    from ..vector import METRIC_OPS
+    if not isinstance(child, PhysTableReader):
+        return None
+    dag = child.dag
+    if dag.aggs or dag.group_items or dag.limit >= 0 \
+            or dag.topn is not None:
+        return None
+    # scalar predicates are welcome: hybrid search applies them as a
+    # pre-top-k mask (they also STAY on the dag so the conventional
+    # fallback subtree filters identically)
+    filters = list(dag.filters) + list(dag.host_filters)
+    tbl = dag.table_info
+    if tbl.id <= 0 or tbl.partitions or tbl.view_select:
+        return None
+    if len(plan.items) != 1 or plan.count < 0 or \
+            plan.offset + plan.count > 16384:
+        return None
+    e, desc = plan.items[0]
+    if desc or not isinstance(e, ScalarFunc) or e.op not in METRIC_OPS \
+            or len(e.args) != 2:
+        return None
+    a, b = e.args
+    col, const = (a, b) if isinstance(a, Column) else (b, a)
+    if not isinstance(col, Column) or not isinstance(const, Constant):
+        return None
+    ft = col.ft
+    if ft is None or not getattr(ft, "is_vector", False) or ft.flen <= 0:
+        return None
+    name = next((sc.name for sc in dag.cols if sc.col.idx == col.idx),
+                None)
+    if name is None:
+        return None
+    ci = tbl.find_column(name)
+    if ci is None or not getattr(ci.ft, "is_vector", False):
+        return None
+    qv = const.value
+    if qv is None or qv.is_null or not isinstance(qv.val, str):
+        return None
+    from ..expression.vec import _parse_vec_text
+    q = _parse_vec_text(qv.val)
+    if q is None or len(q) != ft.flen:
+        return None
+    return PhysVectorSearch(plan.items, plan.offset, plan.count, child,
+                            e.op, ci.name, q, filters=filters)
 
 
 def _try_ml_predict(plan: Projection, child) -> PhysMLPredict | None:
-    """In-SQL inference is not yet ported: no MLFunc is ever bound, so
-    projections keep the conventional plan."""
-    return None
+    """Recognize a projection with top-level predict() calls directly
+    over a table scan and lower it to PhysMLPredict (batched
+    standalone inference). The reader keeps its own filters — rows are
+    filtered BEFORE feature extraction, so the batch is exactly the
+    result set. Aggregated/fused shapes keep the conventional plan
+    (there predict traces into the fragment body instead)."""
+    from ..ml.lowering import MLFunc
+    if not isinstance(child, PhysTableReader):
+        return None
+    dag = child.dag
+    if dag.aggs or dag.group_items or dag.topn is not None:
+        return None
+    if not any(isinstance(e, MLFunc) and e.op == "predict"
+               for e in plan.exprs):
+        return None
+    return PhysMLPredict(plan.exprs, plan.schema, child)
 
 
 def _try_index_range(ds: DataSource) -> PhysPlan | None:

@@ -563,8 +563,8 @@ class Rewriter:
             # time) through the domain's epoch-fenced registry; the
             # bound MLFunc carries name#version in fingerprint/repr so
             # fragment and plan caches fence on model replacement
-            from ..unported import not_ported
-            raise not_ported("in-SQL inference (%s)" % name)
+            from ..ml.lowering import resolve_ml_call
+            return resolve_ml_call(self, node)
         if name in ("nextval", "lastval") and node.args:
             arg = node.args[0]
             if isinstance(arg, ast.ColumnRef):

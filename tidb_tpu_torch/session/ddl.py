@@ -321,8 +321,23 @@ class DDLExecutor:
 
     # ---- models (tidb_tpu/ml/) ----------------------------------------
     def create_model(self, stmt: ast.CreateModelStmt):
-        from ..unported import not_ported
-        raise not_ported("CREATE MODEL")
+        """CREATE MODEL name FROM '<uri>'. Fail-fast validation (name
+        collision, uri readable, npz layout parseable) happens on the
+        session thread; the durable writes run as a TYPE_CREATE_MODEL
+        job through the owner runner so kill -9 mid-create resumes to
+        PUBLIC or rolls back with zero orphaned weight rows."""
+        from ..ml import parse_npz
+        from ..ml.ddl import read_model_uri
+        if self.domain.ml.lookup(stmt.name) is not None:
+            if stmt.if_not_exists:
+                return
+            raise TiDBError("Model '%s' already exists", stmt.name)
+        parse_npz(read_model_uri(stmt.uri))   # layout errors fail here
+        from ..models.job import TYPE_CREATE_MODEL
+        job = DDLJob(type=TYPE_CREATE_MODEL, table_name=stmt.name,
+                     args={"model": {"name": stmt.name,
+                                     "uri": stmt.uri}})
+        self._submit_job(job)
 
     def drop_model(self, stmt: ast.DropModelStmt):
         """DROP MODEL: one meta txn removes the registry row + weight
@@ -491,8 +506,6 @@ class DDLExecutor:
     def create_index(self, stmt: ast.CreateIndexStmt):
         tn = stmt.table
         if getattr(stmt, "vector", False):
-            from ..unported import not_ported
-            raise not_ported("vector indexes")
             return self.create_vector_index(stmt)
         idx_def = ast.IndexDef(name=stmt.index_name, columns=stmt.columns,
                                unique=stmt.unique)

@@ -238,14 +238,14 @@ class Domain:
         # vector search runtime (tidb_tpu/vector/): VECTOR(k) column
         # residency + IVF index registry; subscribes to the capture
         # seam lazily when the first vector index appears
-        # not yet ported: vector search (tidb_tpu/vector/)
-        self.vector = None
+        from ..vector import VectorRuntime
+        self.vector = VectorRuntime(self)
         # in-SQL model inference (tidb_tpu/ml/): epoch-fenced model
         # registry + device-resident weights + forward kernels.
         # Attached BEFORE the DDL runner so a restart-resumed CREATE
         # MODEL job publishes into a live registry
-        # not yet ported: in-SQL inference (tidb_tpu/ml/)
-        self.ml = None
+        from ..ml import MLRuntime
+        self.ml = MLRuntime(self)
         # incremental HTAP (copr/delta.py): the delta maintainer is
         # the capture seam's second consumer — per-table freshness
         # bookkeeping behind information_schema.tidb_replica_freshness

@@ -476,7 +476,7 @@ class Session:
             ts_for_time=self.domain.storage.oracle.ts_for_time,
             table_bulk_rows=self._table_bulk_rows,
             user=f"{self.user}@{self.host}",
-            model_lookup=lambda _name: None,   # ML not yet ported
+            model_lookup=self.domain.ml.lookup,
             device_type=self.domain.device.type,
         )
 

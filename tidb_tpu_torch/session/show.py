@@ -75,8 +75,7 @@ def exec_show(sess, stmt):
     if kind == "models":
         rows = sorted(
             [(h.name, h.kind, h.info.uri, h.info.nbytes, h.version)
-             for h in (sess.domain.ml.handles()
-                       if sess.domain.ml is not None else ())])
+             for h in sess.domain.ml.handles()])
         return _str_chunk(["Model", "Kind", "Uri", "Bytes", "Version"],
                           _like_filter(rows, stmt.like))
     if kind == "variables":

@@ -375,24 +375,29 @@ class ColumnarTable:
         """Per-dict parse cache: float32[ncodes, dim] + valid mask,
         extended only for codes added since the last call (the dict is
         append-only). Rows that fail to parse or disagree with the
-        declared dimension are NaN/invalid."""
+        declared dimension are NaN/invalid. The cache also keeps the
+        longest parsed length: where it is `dim`, the evaluator's
+        dictionary matrix (expression/vec.py:_vec_matrix) is this very
+        table and is not parsed a second time."""
         sd = self.dicts[cid]
         vals = sd.values
         cache = getattr(sd, "_vecmat_cache", None)
         if cache is None or cache[2] != dim:
             cache = [np.full((0, dim), np.nan, dtype=np.float32),
-                     0, dim]
-        tab, upto, _d = cache
+                     0, dim, 0]
+        tab, upto, _d, maxlen = cache
         u = len(vals)
         if u > upto:
             from ..expression.vec import _parse_vec_text
             ext = np.full((u - upto, dim), np.nan, dtype=np.float32)
             for i in range(upto, u):
                 v = _parse_vec_text(vals[i])
-                if v is not None and len(v) == dim:
-                    ext[i - upto] = v
+                if v is not None:
+                    maxlen = max(maxlen, len(v))
+                    if len(v) == dim:
+                        ext[i - upto] = v
             tab = np.concatenate([tab, ext]) if upto else ext
-            sd._vecmat_cache = [tab, u, dim]
+            sd._vecmat_cache = [tab, u, dim, maxlen]
         return tab
 
     def vector_matrix(self, cid: int, dim: int):

@@ -1,7 +1,7 @@
 """Surfaces of tidb_tpu that this package does not carry yet.
 
-The reference wires in-SQL ML, vector search, the read-replica fabric,
-MPP mesh fragments, the cluster transport and BR at query time. Until each is ported, a statement that needs one fails with
+The reference wires the read-replica fabric, MPP mesh fragments, the
+cluster transport and BR at query time. Until each is ported, a statement that needs one fails with
 the error below instead of reaching for the reference package."""
 from __future__ import annotations
 
