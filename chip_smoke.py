@@ -24,7 +24,19 @@ through the tail patch and the index's delta path) and in-SQL inference
 SF1 lineitem, through masked_sums, and standalone over orders), each
 held to its host twin in the same process, and Q6, Q1, the global
 aggregate, Q3 and Q5 again through the package's MySQL wire server,
-with a raw-socket client. Every statement's rows are held to the
+with a raw-socket client. Then the phases that write (HTAP serving):
+BACKUP DATABASE of the SF1 tables with a logbackup:// changefeed armed;
+TPC-H's refresh functions RF1/RF2 from two writer threads while two
+analyst threads run Q1 and Q6 in resolved read mode over resident
+columns the writes fold into (mid-stream rows held to reads at their
+resolved ts, full re-uploads only at bucket crossings, one folding
+statement whole under the sync guard); two read replicas of a table
+written through DML serving dense and LIKE aggregates under point ops,
+an insert stream and a kill of each replica (mirrors == leader at
+quiesce); RESTORE of the snapshot into a fresh Domain with its own data
+dir (Q1, Q3, Q6, Q13 == the committed SF1 rows), then DROP DATABASE and
+RESTORE ... UNTIL TS the mid-stream ts in that Domain (the old table ids
+back, a first upload, rows == the leader's at that ts). Every statement's rows are held to the
 reference package's committed SF1 rows (or a numpy oracle, or the host
 twin), and its route to the counters of the fused path and the reader
 DAGs: fragments, host and device scans, no decline, one dispatch and one
@@ -42,7 +54,8 @@ folds into range_filter_sums (one per partition and statement).
 Run from the repository root: `python3 chip_smoke.py`. It needs one
 CUDA device and the CUDA toolkit (nvcc), and exits non-zero, printing no
 result, when either is missing or any phase fails. The last lines of
-its output are a `{"programs": [...]}` JSON line (the vector and
+its output are a `{"htap_serving": {...}}` JSON line (the write
+phases' figures), a `{"programs": [...]}` JSON line (the vector and
 inference programs' device ms beside their bounds), the card's name and
 power limit, a `{"kernels": [...]}` JSON line and
 `{"ok": true, "device": {...}}`."""
@@ -51,11 +64,13 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import shutil
 import socket
 import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
@@ -2109,6 +2124,882 @@ def phase_wire(tk, exp, nparts, testkit_meds):
     return med
 
 
+# ---- HTAP serving: BR, resolved reads under writes, read replicas -------
+# These phases write, so they run after every phase that holds the SF1
+# tables to the reference's committed rows.
+
+TPCH_TABLES = ("region", "nation", "supplier", "customer", "part",
+               "partsupp", "orders", "lineitem")
+# TPC-H's refresh functions (spec 2.5): RF1 inserts SF x 1,500 new orders
+# with their 1 to 7 lineitems, RF2 deletes SF x 1,500 old orders and
+# theirs; the writers run RF_ROUNDS pairs, RF_BATCH rows an INSERT
+RF_ORDERS = 1500
+RF_ROUNDS = 6
+RF_BATCH = 500
+# the replica phase's DML-written table (scripts/replica_smoke.py's shape:
+# lines(id, k, v, s)) with k in 0..62: 63 keys and the NULL slot fill
+# dense_group_sums' 64 slots (a 64th key takes the sort kind on the
+# card); 1,000,000 rows cut to REPLICA_ROWS, a multiple of the loader's
+# 1,000-row blocks (PERF.md section 4: a mirror's catch-up applies rows
+# one by one on the host)
+REPLICA_ROWS = 62_000
+REPLICA_SLA_MS = 5000
+REPLICA_GROUP = "select k, count(*), sum(v) from lines group by k order by k"
+REPLICA_LIKE = "select count(*), sum(v) from lines where s like 'a%'"
+REPLICA_KERNELS = {REPLICA_GROUP: "dense_group_sums",
+                   REPLICA_LIKE: "masked_sums"}
+# a lineitem row that Q1 and Q6 both count, inserted by a session that
+# then reads in an open transaction: a resolved read must not see it
+DIRTY_ROW = ("insert into lineitem values (0, 1, 1, 1, 1.00, 1000.00, 0.06, "
+             "0.00, 'N', 'O', '1994-06-01', '1994-06-02', '1994-06-03', "
+             "'NONE', 'MAIL', '')")
+
+
+def wait_for(pred, timeout=60.0, interval=0.02):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if pred():
+            return True
+        time.sleep(interval)
+    return pred()
+
+
+class StatementGuard:
+    """A whole statement (bind, uploads, fold, enqueue) under
+    torch.cuda.set_sync_debug_mode("error"), but for the waits of its
+    pinned fetches (utils/fetch.py _Ticket.wait, the statement's counted
+    syncs). Run it with no other thread touching the card: the mode is
+    process-wide."""
+
+    def __enter__(self):
+        import torch
+        from tidb_tpu_torch.utils import fetch
+        self._wait = wait = fetch._Ticket.wait
+
+        def fetch_wait(ticket):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                wait(ticket)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        fetch._Ticket.wait = fetch_wait
+        torch.cuda.set_sync_debug_mode("error")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        from tidb_tpu_torch.utils import fetch
+        torch.cuda.set_sync_debug_mode(0)
+        fetch._Ticket.wait = self._wait
+
+
+class DeviceThreads:
+    """Records the name of every thread that enters a device seam of the
+    coprocessor (fragment enqueue, resident upload, delta fold): a
+    changefeed worker or the replica monitor must enter none."""
+
+    SEAMS = (("tidb_tpu_torch.copr.dag_exec", None, "run_fragment"),
+             ("tidb_tpu_torch.copr.dag_exec", "CoprExecutor",
+              "_upload_padded"),
+             ("tidb_tpu_torch.copr.delta", "DeltaMaintainer", "_run_fold"))
+
+    def __init__(self):
+        import threading
+        self.names = {}
+        self._mu = threading.Lock()
+        self._saved = []
+
+    def __enter__(self):
+        import importlib
+        import threading
+        for mod_name, cls, fn in self.SEAMS:
+            owner = importlib.import_module(mod_name)
+            if cls is not None:
+                owner = getattr(owner, cls)
+            orig = getattr(owner, fn)
+            self._saved.append((owner, fn, orig))
+
+            def seam(*a, _orig=orig, **kw):
+                name = threading.current_thread().name
+                with self._mu:
+                    self.names[name] = self.names.get(name, 0) + 1
+                return _orig(*a, **kw)
+            setattr(owner, fn, seam)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, fn, orig in reversed(self._saved):
+            setattr(owner, fn, orig)
+        self._saved = []
+
+    def feed_threads(self):
+        return {n: c for n, c in self.names.items()
+                if n.startswith(("cdc-", "replica-"))}
+
+
+def tpch_date(day):
+    import datetime
+    return (datetime.date(1970, 1, 1) + datetime.timedelta(
+        days=int(day))).isoformat()
+
+
+def rf1_statements(rng, first_key, ncust):
+    """RF1 as SQL: RF_ORDERS new orders from first_key on, each with 1
+    to 7 lineitems over TPC-H's value domains (dates from 1992 to 1998,
+    so both Q1 and Q6 count some) -> (INSERT statements, lineitems)."""
+    import numpy as np
+    from tidb_tpu_torch.bench import tpch
+    d92 = (np.datetime64("1992-01-01") - np.datetime64("1970-01-01"))
+    d98 = (np.datetime64("1998-08-02") - np.datetime64("1970-01-01"))
+    cut = int((np.datetime64("1995-06-17") - np.datetime64(
+        "1970-01-01")).astype(int))
+    n = RF_ORDERS
+    odate = rng.integers(int(d92.astype(int)), int(d98.astype(int)) - 151,
+                         n)
+    cust = rng.integers(1, ncust + 1, n)
+    cust = np.where(cust % 3 == 0, np.maximum(cust - 1, 1), cust)
+    orders, items = [], []
+    for i in range(n):
+        key = first_key + i
+        nl = int(rng.integers(1, 8))
+        total = 0
+        for ln in range(1, nl + 1):
+            ship = int(odate[i] + rng.integers(1, 122))
+            commit = int(odate[i] + rng.integers(30, 91))
+            receipt = ship + int(rng.integers(1, 31))
+            qty = int(rng.integers(1, 51))
+            price = int(rng.integers(90000, 10500000))
+            total += price
+            flag = ("R", "A")[int(rng.integers(0, 2))] \
+                if receipt <= cut else "N"
+            items.append(
+                f"({key},{int(rng.integers(1, 200001))},"
+                f"{int(rng.integers(1, 10001))},{ln},{qty}.00,"
+                f"{price // 100}.{price % 100:02d},"
+                f"0.{int(rng.integers(0, 11)):02d},"
+                f"0.{int(rng.integers(0, 9)):02d},'{flag}',"
+                f"'{'O' if ship > cut else 'F'}','{tpch_date(ship)}',"
+                f"'{tpch_date(commit)}','{tpch_date(receipt)}',"
+                f"'{tpch.INSTRUCTS[int(rng.integers(0, 4))]}',"
+                f"'{tpch.SHIPMODES[int(rng.integers(0, 7))]}','')")
+        orders.append(
+            f"({key},{int(cust[i])},'O',{total // 100}.{total % 100:02d},"
+            f"'{tpch_date(odate[i])}',"
+            f"'{tpch.PRIORITIES[int(rng.integers(0, 5))]}',"
+            f"'Clerk#000000001',0,'')")
+    stmts = [f"insert into orders values {','.join(orders[j:j + RF_BATCH])}"
+             for j in range(0, len(orders), RF_BATCH)]
+    stmts += [f"insert into lineitem values "
+              f"{','.join(items[j:j + RF_BATCH])}"
+              for j in range(0, len(items), RF_BATCH)]
+    return stmts, len(items)
+
+
+def rf2_statements(lo):
+    hi = lo + RF_ORDERS - 1
+    return [f"delete from orders where o_orderkey between {lo} and {hi}",
+            f"delete from lineitem where l_orderkey between {lo} and {hi}"]
+
+
+def phase_br_snapshot(tk, tmp):
+    """BACKUP DATABASE test over the SF1 tables (the tables earlier
+    phases added are dropped first), with a logbackup:// changefeed
+    armed before it and kept running through the HTAP writes. -> the
+    backup's record."""
+    dom = tk.domain
+    for t in dom.infoschema().tables_in_schema("test"):
+        if t.name not in TPCH_TABLES:
+            tk.must_exec(f"drop table `{t.name}`")
+    snap = os.path.join(tmp, "snap")
+    feed = dom.cdc.create(
+        "br_log", f"logbackup://{snap}/log/backup.log",
+        start_ts=dom.cdc.capture.resolved_ts(), auto_start=True)
+    t0 = time.perf_counter()
+    n = tk.must_exec(f"backup database test to 'local://{snap}'").affected
+    secs = time.perf_counter() - t0
+    with open(os.path.join(snap, "backupmeta.json")) as f:
+        man = json.load(f)
+    rows = {e["table"]["name"]: sum(c["rows"] for c in e["chunks"])
+            for e in man["tables"]}
+    want = {t: table_rows(tk, t) for t in TPCH_TABLES}
+    if n != len(TPCH_TABLES) or rows != want:
+        fail(f"backup: {n} tables, rows {rows}; expected {want}")
+    nbytes = sum(c["bytes"] for e in man["tables"] for c in e["chunks"])
+    log(f"br backup: {sum(rows.values())} rows of {n} tables in {secs:.1f} "
+        f"s, {nbytes} bytes in "
+        f"{sum(len(e['chunks']) for e in man['tables'])} chunks; "
+        f"backup_ts {man['backup_ts']}; logbackup:// feed armed")
+    ids = {t: dom.infoschema().table_by_name("test", t).id
+           for t in TPCH_TABLES}
+    return {"path": snap, "feed": feed, "backup_s": secs,
+            "backup_bytes": nbytes, "rows": sum(rows.values()),
+            "backup_ts": man["backup_ts"], "table_ids": ids}
+
+
+def pinned_rows(tk, sql, ts):
+    """Rows of `sql` read at exactly `ts` (the session pin the replica
+    fabric's mirrors read at; the port has no tidb_snapshot)."""
+    pin = tk.new_session()
+    pin.sess.pinned_read_ts = ts
+    return pin.must_query(sql)._norm()
+
+
+def slot_of(key):
+    """An appendable entry's column slot: (uid, tag, column, kind,
+    start); its key adds the gc epoch and the padded capacity."""
+    return (key[1], key[2], key[3], key[4]) + tuple(key[6:-1])
+
+
+def resident_slots(dom):
+    """slot -> (uid, start, span, cap) of every table's appendable
+    resident entries."""
+    store = dom.copr._dev_store
+    out = {}
+    for ctab in list(dom.columnar.tables.values()):
+        for key, _d, _r, _v, start, span, cap, _e in \
+                store.appendable_entries(ctab.uid):
+            out[slot_of(key)] = (ctab.uid, start, span, cap)
+    return out
+
+
+def grown_past(dom, uid, start, span, cap):
+    """Whether the partition [start, start + span) of the table with
+    `uid` now holds more rows than the padded capacity `cap`."""
+    tab = next((t for t in list(dom.columnar.tables.values())
+                if t.uid == uid), None)
+    if tab is None:
+        return False
+    n = tab.n - start
+    return (n if span is None else min(n, span)) > cap
+
+
+def phase_htap(tk, exp, card):
+    """TPC-H RF1/RF2 pairs from two writer threads while two analyst
+    threads run Q1 and Q6 under tidb_tpu_analytic_read_mode = 'resolved'
+    (every other statement inside an open transaction holding a DIRTY_ROW
+    insert), over resident lineitem buffers the writes fold into. Gates:
+    no statement error; no dirty-overlay routing in resolved mode (a
+    leader-mode control does route one); delta folds applied and
+    tombstones advanced; a resident buffer uploaded whole again only at
+    its partition's bucket crossing, once; recorded mid-stream
+    statements == the same statement read at their resolved ts on the
+    card (and the middle ones on the host twin); at quiesce resolved ==
+    leader == host twin; each kernel == its plain version on a checked
+    statement; one warm folding statement under StatementGuard. -> the
+    phase's record."""
+    import threading
+    import numpy as np
+    from tidb_tpu_torch.bench import tpch
+    from tidb_tpu_torch.session.session import Session
+    from tidb_tpu_torch.utils import metrics as mu
+    from tidb_tpu_torch.utils import phase
+    dom = tk.domain
+    copr = dom.copr
+    cuda = copr.device.type == "cuda"
+    sqls = {"q1": tpch.Q1, "q6": tpch.Q6}
+    res = tk.new_session()
+    res.must_exec("set @@tidb_tpu_analytic_read_mode = 'resolved'")
+    quiet = {}
+    for q, sql in sqls.items():
+        ms = []
+        for i in range(1 + WARM_RUNS):
+            t0 = time.perf_counter()
+            got = res.must_query(sql)._norm()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if got != [tuple(r) for r in exp[q]]:
+                fail(f"htap {q} before writes: rows {got} != expected")
+        quiet[q] = statistics.median(ms[1:])
+    floors = threading.local()
+    orig_resolved = Session._maybe_resolved_read
+
+    def recording(self, stmt, plan, ectx):
+        orig_resolved(self, stmt, plan, ectx)
+        floors.ts = ectx.stale_read_ts if \
+            getattr(ectx, "analytic_resolved", False) else 0
+    Session._maybe_resolved_read = recording
+    store = copr._dev_store
+    resident0 = resident_slots(dom)
+    puts = []
+    orig_put = store.put_appendable
+
+    def put_appendable(key, dev, *a, **kw):
+        m = resident0.get(slot_of(key))
+        crossed = m is not None and grown_past(dom, *m)
+        orig_put(key, dev, *a, **kw)
+        if store._entries.get(key) is dev:    # a racing bind's loses
+            puts.append((key, crossed))
+    store.put_appendable = put_appendable
+    labels = ("applied", "advanced", "compacted", "fell_back_full_upload")
+    a0 = {lab: mu.DELTA_APPLY.labels(lab).value for lab in labels}
+    b0 = mu.DELTA_APPLY_BYTES.labels().value
+    stale0 = mu.ANALYTIC_READS.labels("staleness_fallback").value
+    overlay0 = dom.metrics.get("fused_pipeline_dirty_overlay", 0)
+    li = dom.columnar.tables[dom.infoschema().table_by_name(
+        "test", "lineitem").id]
+    n0 = li.n
+    first_key = int(tk.must_query(
+        "select max(o_orderkey) from orders").rows[0][0]) + 1
+    ncust = table_rows(tk, "customer")
+    rng = np.random.default_rng(SEED)
+    rounds = []
+    for r in range(RF_ROUNDS):
+        ins, nli = rf1_statements(rng, first_key + r * RF_ORDERS, ncust)
+        rounds.append((ins, nli, rf2_statements(1 + r * RF_ORDERS)))
+    errors, samples = [], []
+    written = [0]
+    done = [0]
+    mid = {}
+    mu_ = threading.Lock()
+    stop = threading.Event()
+
+    def writer(w):
+        s = tk.new_session()
+        try:
+            for ins, nli, dels in rounds[w::2]:
+                for sql in ins:
+                    s.must_exec(sql)
+                deleted = sum(s.must_exec(sql).affected for sql in dels)
+                with mu_:
+                    written[0] += RF_ORDERS + nli + deleted
+                    done[0] += 1
+                    if done[0] == RF_ROUNDS // 2:
+                        mid["ts"] = copr.delta.resolved_ts()
+        except Exception as e:              # noqa: BLE001
+            errors.append(f"writer {w}: {type(e).__name__}: {e}")
+
+    def analyst(a):
+        s = tk.new_session()
+        s.must_exec("set @@tidb_tpu_analytic_read_mode = 'resolved'")
+        i = 0
+        try:
+            while not stop.is_set():
+                q = ("q1", "q6")[(a + i) % 2]
+                dirty = i % 2 == 1
+                if dirty:
+                    s.must_exec("begin")
+                    s.must_exec(DIRTY_ROW)
+                t0 = time.perf_counter()
+                got = s.must_query(sqls[q])._norm()
+                ms = (time.perf_counter() - t0) * 1e3
+                if dirty:
+                    s.must_exec("rollback")
+                samples.append((q, floors.ts, got, ms, dirty))
+                i += 1
+        except Exception as e:              # noqa: BLE001
+            errors.append(f"analyst {a}: {type(e).__name__}: {e}")
+    try:
+        t0 = time.perf_counter()
+        writers = [threading.Thread(target=writer, args=(w,), daemon=True)
+                   for w in range(2)]
+        analysts = [threading.Thread(target=analyst, args=(a,),
+                                     daemon=True) for a in range(2)]
+        for t in writers + analysts:
+            t.start()
+        for t in writers:
+            t.join()
+        write_s = time.perf_counter() - t0
+        stop.set()
+        for t in analysts:
+            t.join()
+    finally:
+        Session._maybe_resolved_read = orig_resolved
+        store.put_appendable = orig_put
+    if errors:
+        fail(f"htap: statement errors {errors[:3]}")
+    if done[0] != RF_ROUNDS or "ts" not in mid:
+        fail(f"htap: {done[0]} of {RF_ROUNDS} RF pairs ran")
+    applied = {lab: mu.DELTA_APPLY.labels(lab).value - a0[lab]
+               for lab in labels}
+    overlay = dom.metrics.get("fused_pipeline_dirty_overlay", 0) - overlay0
+    stale_reads = mu.ANALYTIC_READS.labels("staleness_fallback").value - \
+        stale0
+    # a buffer resident before the writes is put whole again only once
+    # its partition crossed its padded capacity: once at the new one
+    # (and at the old one only by a statement whose snapshot predates
+    # the crossing); the buffers of Q1's and Q6's columns in lineitem's
+    # last partition crossed and were put at the new capacity
+    crossed = {sl: m for sl, m in resident0.items() if grown_past(dom, *m)}
+    again = [(slot_of(k), k[-1], c) for k, c in puts
+             if slot_of(k) in resident0]
+    grown = [(sl, cap) for sl, cap, _c in again if cap > resident0[sl][3]]
+    needless = [sl for sl, cap, c in again if not c] + [
+        g for g in set(grown) if grown.count(g) > 1]
+    stale = [sl for sl, cap, c in again if c and cap == resident0[sl][3]]
+    info = dom.infoschema().table_by_name("test", "lineitem")
+    read = {info.find_column(c).id for c in (
+        "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+        "l_returnflag", "l_linestatus", "l_shipdate")}
+    last = ((li.n - 1) // copr.device_rows) * copr.device_rows
+    hot = {sl for sl, m in crossed.items() if m[0] == li.uid and
+           m[1] == last and sl[2] in read}
+    parts_crossed = {(m[0], m[1]) for m in crossed.values()}
+    parts_again = {(resident0[sl][0], resident0[sl][1]) for sl, _c in grown}
+    log(f"htap: {RF_ROUNDS} RF1/RF2 pairs ({written[0]} rows written) in "
+        f"{write_s:.1f} s, {written[0] / write_s:.1f} rows/s from 2 "
+        f"writers; {len(samples)} analyst statements; delta outcomes "
+        f"{json.dumps(applied)}; lineitem {n0} -> {li.n} rows; "
+        f"partitions (uid, start) crossed {sorted(parts_crossed)}, "
+        f"re-uploaded {sorted(parts_again)} ({len(grown)} buffers; "
+        f"{len(stale)} at the old capacity by a statement older than the "
+        f"crossing); {stale_reads} staleness fallbacks; {overlay} "
+        f"dirty-overlay routings; card {card}")
+    if needless or not hot or not hot <= {sl for sl, _c in grown}:
+        fail(f"htap: whole uploads without a crossing or twice "
+             f"{needless}; lineitem's crossed buffers {sorted(hot)}, put "
+             f"at a new capacity {sorted(set(grown))}")
+    crossings = len(parts_again)
+    # a statement whose resolved floor lagged past
+    # tidb_tpu_analytic_max_staleness_ms ran on the leader path (floor 0
+    # recorded), where a dirty transaction routes the overlay: every
+    # overlay routing must be one of those, none a resolved statement's
+    dirty_leader = sum(1 for s in samples if s[4] and not s[1])
+    if overlay != dirty_leader:
+        fail(f"htap: {overlay} dirty-overlay routings, {dirty_leader} "
+             "dirty statements on the leader path (staleness fallback)")
+    if applied["applied"] <= 0 or applied["advanced"] <= 0:
+        fail(f"htap: delta outcomes {applied}: no fold or no tombstone "
+             "advance")
+    if applied["fell_back_full_upload"]:
+        fail(f"htap: {applied['fell_back_full_upload']} delta fallbacks")
+    # mid-stream statements, read again at their resolved ts: on the
+    # card (the first, the middle, the last and the last in a dirty
+    # transaction of each query) and on the host twin (the middle one:
+    # a host Q1 over SF1 takes seconds)
+    usable = [s for s in samples if s[1]]
+    picked, middle = [], []
+    for q in sqls:
+        mine = sorted((s for s in usable if s[0] == q), key=lambda s: s[1])
+        if len(mine) < 3 or not any(s[4] for s in mine):
+            fail(f"htap: {len(mine)} resolved {q} statements recorded")
+        picked += [mine[0], mine[len(mine) // 2], mine[-1]]
+        picked.append(next(s for s in reversed(mine) if s[4]))
+        middle.append(mine[len(mine) // 2])
+    for q, ts, got, _ms, dirty in picked:
+        if pinned_rows(tk, sqls[q], ts) != got:
+            fail(f"htap {q} at resolved ts {ts} (dirty txn {dirty}): rows "
+                 "!= the card's read at that ts")
+    mid_rows = {q: pinned_rows(tk, sql, mid["ts"])
+                for q, sql in sqls.items()}
+    mid_rows["q13"] = pinned_rows(tk, tpch.ALL_QUERIES["q13"], mid["ts"])
+    copr.use_device = False
+    try:
+        for q, ts, got, _ms, dirty in middle:
+            if pinned_rows(tk, sqls[q], ts) != got:
+                fail(f"htap {q} at resolved ts {ts}: rows != the host "
+                     "twin's read at that ts")
+        host = {q: tk.must_query(sql)._norm() for q, sql in sqls.items()}
+    finally:
+        copr.use_device = True
+    log(f"htap: {len(picked)} mid-stream statements (resolved ts "
+        f"{[s[1] for s in picked]}) == the card's reads at their ts, "
+        f"{len(middle)} == the host twin's")
+    leader = tk.new_session()
+    for q, sql in sqls.items():
+        r_rows = res.must_query(sql)._norm()
+        l_rows = leader.must_query(sql)._norm()
+        if not (r_rows == l_rows == host[q]):
+            fail(f"htap {q} at quiesce: resolved, leader and host twin "
+                 "rows differ")
+    # the overlay control: a leader-mode read in a dirty transaction
+    c0 = dom.metrics.get("fused_pipeline_dirty_overlay", 0)
+    leader.must_exec("begin")
+    leader.must_exec(DIRTY_ROW)
+    leader.must_query(sqls["q1"])
+    leader.must_exec("rollback")
+    if dom.metrics.get("fused_pipeline_dirty_overlay", 0) - c0 != 1:
+        fail("htap: the leader-mode control took no dirty overlay")
+    # each kernel held to its plain version on a checked statement
+    for q, sql in sqls.items():
+        got, calls = checked_kernels(lambda: res.must_query(sql)._norm())
+        if got != host[q] or not calls:
+            fail(f"htap {q} checked: rows or kernel calls {calls}")
+        log(f"htap {q}: kernel calls == plain versions: " +
+            "; ".join(f"{c} {sh}" for c, sh in calls))
+    # one warm statement that folds, its bind and enqueue under the guard
+    fresh, _n = rf1_statements(rng, first_key + RF_ROUNDS * RF_ORDERS,
+                               ncust)
+    res.must_exec(fresh[-1])                # one batch of lineitems
+    phase.reset()
+    peak = None
+    if cuda:
+        import torch
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with StatementGuard():
+            got = res.must_query(sqls["q1"])._norm()
+        peak = torch.cuda.max_memory_allocated() - base
+    else:
+        got = res.must_query(sqls["q1"])._norm()
+    snap = phase.snap()
+    want = leader.must_query(sqls["q1"])._norm()
+    if got != want or not snap.get("delta_applies"):
+        fail(f"htap guarded fold: {phase_line(snap)} delta_applies="
+             f"{snap.get('delta_applies', 0)}; rows == the leader's "
+             f"{got == want}")
+    log(f"htap guarded fold: Q1 bound, folded and enqueued under "
+        f"set_sync_debug_mode('error'): delta_applies="
+        f"{snap['delta_applies']} delta_bytes={snap.get('delta_bytes', 0)} "
+        f"{phase_line(snap)}; device memory over the statement "
+        f"{peak} bytes")
+    busy = {q: statistics.median([s[3] for s in samples if s[0] == q])
+            for q in sqls}
+    after = {}
+    for q, sql in sqls.items():
+        ms = []
+        for _ in range(WARM_RUNS):
+            t0 = time.perf_counter()
+            res.must_query(sql)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        after[q] = statistics.median(ms)
+    folds = mu.DELTA_APPLY.labels("applied").value - a0["applied"]
+    dbytes = mu.DELTA_APPLY_BYTES.labels().value - b0
+    fold = fold_program(copr, li) if cuda else None
+    rec = {"warm_ms_quiet": quiet, "warm_ms_under_writes": busy,
+           "warm_ms_after": after, "writer_rows_per_s": written[0] / write_s,
+           "write_s": write_s, "delta_outcomes": applied,
+           "delta_bytes_per_fold": dbytes / max(folds, 1),
+           "bucket_crossings": crossings, "statements": len(samples),
+           "staleness_fallbacks": stale_reads, "fold": fold,
+           "fold_statement_peak_bytes": peak,
+           "mid_ts": mid["ts"], "mid_rows": mid_rows}
+    log(f"htap: warm ms quiet {json.dumps(quiet)}, under writes "
+        f"{json.dumps(busy)}, after {json.dumps(after)}; "
+        f"{rec['delta_bytes_per_fold']:.1f} delta bytes per fold; "
+        f"fold program {json.dumps(fold)}; card {card}")
+    return rec
+
+
+def fold_program(copr, li):
+    """copr/delta.py's fold program timed on the card over the resident
+    buffers of lineitem's last partition, with a padded delta of one RF1
+    round's lineitems: ms per fold beside its bound (the buffers it
+    clones, read once and written once, at HBM_BYTES_PER_S)."""
+    import torch
+    from tidb_tpu_torch.chunk.device import shape_bucket, upload
+    from tidb_tpu_torch.copr.delta import _fold
+    ents = [e for e in copr._dev_store.appendable_entries(li.uid)
+            if e[4] == ((li.n - 1) // copr.device_rows) * copr.device_rows]
+    if not ents:
+        fail("fold program: no resident buffer of lineitem's last partition")
+    ulen = shape_bucket(4 * RF_ORDERS)
+    bufs = tuple(e[1] for e in ents)
+    upds = tuple(upload(e[1][:ulen].cpu().numpy(), e[1].device)
+                 for e in ents)
+    offs = tuple(max(e[2] - ulen, 0) for e in ents)
+    out = _fold(bufs, upds, offs)
+    for b, u, o, nb in zip(bufs, upds, offs, out):
+        want = b.clone()
+        want[o:o + u.shape[0]] = u
+        if not torch.equal(nb, want):
+            fail("fold program disagrees with clone + slice-assign")
+    flush = torch.ones(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    ms = time_ms(lambda: _fold(bufs, upds, offs), flush=flush)
+    nbytes = sum(b.numel() * b.element_size() for b in bufs)
+    return {"buffers": len(bufs), "clone_bytes": nbytes,
+            "delta_rows": ulen, "ms": ms,
+            "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_replica(card, device=None, rows=REPLICA_ROWS):
+    """The read-replica fabric on the card: a leader Domain with
+    lines(id, k, v, s) written through INSERT ... SELECT, two replicas
+    provisioned (TiDB's SET TIFLASH REPLICA 2), then point ops and an
+    insert stream with two replica-pinned analysts in resolved mode
+    running REPLICA_GROUP (dense_group_sums) and REPLICA_LIKE
+    (masked_sums) while each replica is killed in turn. Gates: no
+    statement error, routed statements before and after each kill, no
+    degrade and no mid-statement report, mirrors == leader at quiesce,
+    no served statement staler than the SLA, no feed worker or monitor
+    thread at a device seam, each kernel launched on a mirror's checked
+    statement == its plain version. -> the phase's record."""
+    import threading
+    from tidb_tpu_torch.testkit import TestKit
+    from tidb_tpu_torch.utils import metrics as mu
+    tkr = TestKit(device=device)
+    dom = tkr.domain
+    cuda = dom.copr.device.type == "cuda"
+    r0 = {o: mu.REPLICA_ROUTE.labels(o).value
+          for o in ("replica", "leader_fallback", "degraded_midstmt")}
+
+    def routed():
+        return mu.REPLICA_ROUTE.labels("replica").value - r0["replica"]
+    tkr.must_exec("create table digits (d int primary key, t varchar(8))")
+    tkr.must_exec("insert into digits values " + ",".join(
+        f"({i}, '{chr(97 + i % 26)}{i}')" for i in range(1000)))
+    tkr.must_exec("create table lines (id int primary key, k int, v int, "
+                  "s varchar(16))")
+    t0 = time.perf_counter()
+    for lo in range(0, rows // 1000, 50):
+        tkr.must_exec(
+            "insert into lines select a.d * 1000 + b.d, (a.d * 1000 + b.d) "
+            "% 63, (a.d * 7919 + b.d * 31) % 100000, concat(a.t, '-', b.d) "
+            f"from digits a join digits b where a.d >= {lo} and a.d < "
+            f"{min(lo + 50, rows // 1000)}")
+    load_s = time.perf_counter() - t0
+    for scope in ("global", "session"):
+        tkr.must_exec(f"set @@{scope}.tidb_tpu_analytic_read_mode = "
+                      "'resolved'")
+        tkr.must_exec(f"set @@{scope}.tidb_tpu_replica_max_lag_ms = "
+                      f"{REPLICA_SLA_MS}")
+    with DeviceThreads() as seams:
+        t0 = time.perf_counter()
+        reps = dom.replicas.provision(2)
+        if not wait_for(lambda: all(r.state == "serving" for r in reps),
+                        timeout=600):
+            fail(f"replicas never served: {[r.state for r in reps]}")
+        catchup_s = time.perf_counter() - t0
+        for r in reps:
+            if r.mirror.copr.device != dom.copr.device:
+                fail(f"replica {r.rid} runs on {r.mirror.copr.device}")
+        log(f"replica: {rows} rows loaded through INSERT ... SELECT in "
+            f"{load_s:.1f} s; 2 replicas caught up in {catchup_s:.1f} s")
+        leader = tkr.new_session()
+        leader.must_exec("set @@tidb_tpu_analytic_read_mode = 'leader'")
+        ms = {}
+        for q in REPLICA_KERNELS:
+            for who, kit in (("replica", tkr), ("leader", leader)):
+                t = []
+                for _ in range(1 + WARM_RUNS):
+                    t1 = time.perf_counter()
+                    kit.must_query(q)
+                    t.append((time.perf_counter() - t1) * 1e3)
+                    route = getattr(kit.sess, "_stmt_route", "")
+                    if (who == "replica") != route.startswith("replica"):
+                        fail(f"replica warm {who} statement routed "
+                             f"'{route}'")
+                ms.setdefault(q, {})[who] = statistics.median(t[1:])
+        errors = []
+        stop = threading.Event()
+        seq = [10_000_000]
+        runs = [0]
+
+        def oltp():
+            s = tkr.new_session()
+            i = 0
+            while not stop.is_set():
+                try:
+                    if i % 5 == 0:
+                        seq[0] += 1
+                        n = seq[0]
+                        s.must_exec(f"insert into lines values ({n}, "
+                                    f"{n % 63}, {n % 1000}, 'w{n % 26}')")
+                    else:
+                        s.must_query("select v from lines where id = "
+                                     f"{(i * 7919) % rows}")
+                except Exception as e:      # noqa: BLE001
+                    errors.append(f"oltp: {type(e).__name__}: {e}")
+                    return
+                i += 1
+
+        def analyst(a):
+            s = tkr.new_session()
+            i = 0
+            while not stop.is_set():
+                try:
+                    s.must_query((REPLICA_GROUP, REPLICA_LIKE)[(a + i) % 2])
+                    runs[0] += 1
+                except Exception as e:      # noqa: BLE001
+                    errors.append(f"analyst {a}: {type(e).__name__}: {e}")
+                    return
+                i += 1
+        threads = [threading.Thread(target=oltp, daemon=True)] + [
+            threading.Thread(target=analyst, args=(a,), daemon=True)
+            for a in range(2)]
+        for t in threads:
+            t.start()
+        kills = []
+        try:
+            for rep in reps:
+                if not wait_for(lambda: rep.state == "serving"):
+                    fail(f"replica {rep.rid} not serving before its kill")
+                base = routed()
+                if not wait_for(lambda: routed() > base):
+                    fail(f"no replica-routed statement before killing "
+                         f"{rep.rid}")
+                pre = rep.reprovisions
+                t1 = time.perf_counter()
+                dom.replicas.kill(rep.rid)
+                if not wait_for(lambda: rep.state == "serving" and
+                                rep.reprovisions > pre, timeout=120):
+                    fail(f"replica {rep.rid} did not come back "
+                         f"({rep.state})")
+                back = time.perf_counter() - t1
+                base = routed()
+                if not wait_for(lambda: routed() > base):
+                    fail(f"no replica-routed statement after killing "
+                         f"{rep.rid}")
+                kills.append(back)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join()
+        if errors:
+            fail(f"replica: statement errors {errors[:3]}")
+        want = leader.must_query("select id, k, v, s from lines order by "
+                                 "id").rows
+        for rep in reps:
+            if not wait_for(lambda: rep.sink.mirror_rows("test", "lines")
+                            == want, timeout=120):
+                got = set(rep.sink.mirror_rows("test", "lines"))
+                fail(f"replica {rep.rid} ({rep.state}): mirror rows != "
+                     f"leader rows at quiesce: {len(set(want) - got)} "
+                     f"missing, {len(got - set(want))} extra")
+        lead = {q: leader.must_query(q)._norm() for q in REPLICA_KERNELS}
+        guard = SyncGuard() if cuda else None
+        checked = {}
+        if guard is not None:
+            guard.__enter__()
+        try:
+            for q, kname in REPLICA_KERNELS.items():
+                if not wait_for(lambda: all(
+                        r.state == "serving" for r in reps)):
+                    fail("replicas not serving at quiesce")
+                got, calls = checked_kernels(
+                    lambda: tkr.must_query(q)._norm())
+                route = tkr.sess._stmt_route
+                if got != lead[q] or not route.startswith("replica") or \
+                        kname not in [c[0] for c in calls]:
+                    fail(f"replica checked '{q}': route {route}, calls "
+                         f"{calls}, rows == leader {got == lead[q]}")
+                checked[q] = (route, calls)
+        finally:
+            if guard is not None:
+                guard.__exit__()
+    midstmt = {k: v for k, v in dom.metrics.items()
+               if k.startswith("replica_midstmt_") and v}
+    degraded = mu.REPLICA_ROUTE.labels("degraded_midstmt").value - \
+        r0["degraded_midstmt"]
+    served = dom.metrics.get("replica_served_max_lag_ms", 0.0)
+    if degraded or midstmt or routed() <= 0:
+        fail(f"replica: {degraded} mid-statement degrades, reports "
+             f"{midstmt}, {routed()} routed statements")
+    if served > REPLICA_SLA_MS:
+        fail(f"replica: a served statement was {served} ms stale")
+    if seams.feed_threads():
+        fail(f"replica: feed or monitor threads at device seams: "
+             f"{seams.feed_threads()}")
+    peak = None
+    if cuda:
+        import torch
+        peak = torch.cuda.max_memory_allocated()
+    rec = {"rows": rows, "load_s": load_s, "catchup_s": catchup_s,
+           "warm_ms": ms, "routed": routed(),
+           "leader_fallback": mu.REPLICA_ROUTE.labels(
+               "leader_fallback").value - r0["leader_fallback"],
+           "analyst_statements": runs[0], "kill_recovery_s": kills,
+           "served_max_lag_ms": served, "peak_device_bytes": peak,
+           "device_seams_by_thread": seams.names}
+    for q, (route, calls) in checked.items():
+        log(f"replica '{q}' on {route}: kernel calls == plain versions: " +
+            "; ".join(f"{c} {sh}" for c, sh in calls))
+    log(f"replica: {rec['routed']} statements routed to replicas, "
+        f"{rec['leader_fallback']} to the leader, 0 degraded, "
+        f"{runs[0]} analyst statements under 2 kills (back to serving in "
+        f"{[round(k, 2) for k in kills]} s); served lag <= {served:.1f} ms"
+        f"; warm ms {json.dumps(ms)}; peak device memory {peak} bytes; "
+        f"card {card}")
+    dom.close()
+    return rec
+
+
+def phase_br_restore(tk, br, exp, htap, card, device=None):
+    """RESTORE DATABASE test from the snapshot (UNTIL TS its backup ts:
+    the log the HTAP writes filled is not replayed) into a fresh Domain
+    with its own data dir: Q1, Q3, Q6 and Q13 == the committed SF1
+    rows. Then DROP DATABASE and RESTORE ... UNTIL TS the HTAP phase's
+    mid-stream ts in the same Domain: the old table ids come back, the
+    first statement uploads, and Q1, Q6 and Q13 (whose materialized dim
+    the cache held for the dropped tables) == the leader's reads at that
+    ts. -> the record."""
+    import shutil
+    import tempfile
+    from tidb_tpu_torch.bench import tpch
+    from tidb_tpu_torch.session import new_store
+    from tidb_tpu_torch.testkit import TestKit
+    from tidb_tpu_torch.utils import phase
+    feed = br["feed"]
+    if not wait_for(lambda: feed.checkpoint_ts >= htap["mid_ts"],
+                    timeout=120):
+        fail(f"logbackup:// feed checkpoint {feed.checkpoint_ts} below "
+             f"the mid-stream ts {htap['mid_ts']}")
+    feed.drain()
+    tk.domain.cdc.remove("br_log")
+    src = f"local://{br['path']}"
+    out = {}
+    ddir = tempfile.mkdtemp(prefix="restore_")
+    try:
+        tkr = TestKit(new_store(ddir, device=device))
+        t0 = time.perf_counter()
+        n = tkr.must_exec(f"restore database test from '{src}' until ts "
+                          f"{br['backup_ts']}").affected
+        out["restore_s"] = time.perf_counter() - t0
+        if n != br["rows"]:
+            fail(f"restore: {n} rows, backup holds {br['rows']}")
+        ids = {t: tkr.domain.infoschema().table_by_name("test", t).id
+               for t in TPCH_TABLES}
+        if ids != br["table_ids"]:
+            fail(f"restore: table ids {ids} != the backup's")
+        for q in ("q1", "q3", "q6", "q13"):
+            sql = tpch.ALL_QUERIES[q]
+            for run in ("cold", "warm", "checked"):
+                if run == "checked" and q not in ("q1", "q6"):
+                    continue
+                t0 = time.perf_counter()
+                if run == "checked":
+                    got, calls = checked_kernels(
+                        lambda: tkr.must_query(sql)._norm())
+                    log(f"br {q} restored: kernel calls == plain "
+                        "versions: " + "; ".join(f"{c} {sh}"
+                                                 for c, sh in calls))
+                else:
+                    got = tkr.must_query(sql)._norm()
+                out[f"{q}_{run}_ms"] = (time.perf_counter() - t0) * 1e3
+                if got != [tuple(r) for r in exp[q]]:
+                    fail(f"br {q} {run} on the restored tables: rows {got}"
+                         " != expected")
+        log(f"br restore: {n} rows in {out['restore_s']:.1f} s; Q1, Q3, "
+            "Q6, Q13 == expected SF1 rows (ms " + json.dumps(
+                {k: round(v, 2) for k, v in out.items()
+                 if k.endswith("_ms")}) + ")")
+        # DROP and RESTORE in one Domain: the table ids repeat, the
+        # resident columns and materialized dims (keyed on uids) must not
+        tkr.must_exec("drop database test")
+        t0 = time.perf_counter()
+        tkr.must_exec(f"restore database test from '{src}' until ts "
+                      f"{htap['mid_ts']}")
+        out["pitr_s"] = time.perf_counter() - t0
+        tkr.must_exec("use test")
+        if {t: tkr.domain.infoschema().table_by_name("test", t).id
+                for t in TPCH_TABLES} != ids:
+            fail("drop + restore: the table ids changed")
+        m0 = tkr.domain.metrics.get("fused_matdim_build", 0)
+        phase.reset()
+        got = tkr.must_query(tpch.ALL_QUERIES["q13"])._norm()
+        snap = phase.snap()
+        builds = tkr.domain.metrics.get("fused_matdim_build", 0) - m0
+        if got != htap["mid_rows"]["q13"] or \
+                not snap.get("upload_bytes") or not builds:
+            fail(f"br drop + restore: Q13 rows == the leader's at the "
+                 f"mid-stream ts {got == htap['mid_rows']['q13']}, "
+                 f"{phase_line(snap)}, matdim builds {builds}")
+        for q in ("q1", "q6"):
+            got = tkr.must_query(tpch.ALL_QUERIES[q])._norm()
+            if got != htap["mid_rows"][q]:
+                fail(f"br pitr {q}: rows {got} != the leader's read at ts "
+                     f"{htap['mid_ts']}")
+        log(f"br drop + RESTORE ... UNTIL TS {htap['mid_ts']}: the same "
+            f"table ids back in {out['pitr_s']:.1f} s; Q13's first "
+            f"statement uploaded {snap['upload_bytes']} bytes and rebuilt "
+            "its materialized dim; Q13, Q1 and Q6 == the leader's reads at "
+            f"that ts; card {card}")
+        tkr.domain.close()
+    finally:
+        shutil.rmtree(ddir, ignore_errors=True)
+    out.update({"backup_s": br["backup_s"],
+                "backup_bytes": br["backup_bytes"], "rows": br["rows"]})
+    return out
+
 def main():
     sys.path.insert(0, ROOT)
     card = phase_card()
@@ -2190,6 +3081,27 @@ def main():
         f"({json.dumps(guard.hook_calls)}) ran under "
         "set_sync_debug_mode('error')")
     counted("wire", lambda: phase_wire(tk, exp, nparts, meds))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_br_")
+    try:
+        t0 = time.perf_counter()
+        br = phase_br_snapshot(tk, tmp)
+        htap = counted("htap", lambda: phase_htap(tk, exp, card),
+                       kernels=("dense_group_sums", "range_filter_sums"))
+        log(f"br snapshot and htap phases {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        replica = counted("replica", lambda: phase_replica(card),
+                          folds=False,
+                          kernels=("masked_sums", "dense_group_sums"))
+        log(f"replica phase {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        restored = counted("br", lambda: phase_br_restore(
+            tk, br, exp, htap, card),
+            kernels=("dense_group_sums", "range_filter_sums"))
+        log(f"br restore phase {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     log(f"launches by path: {json.dumps(by_path)}; folded product pairs "
         f"by path: {json.dumps(pairs_by_path)}")
     replaces = {"masked_sums": "tidb_tpu/ops/pallas_scan.py:75",
@@ -2212,6 +3124,10 @@ def main():
             rec["replaced_path_ms"] = r[8]
             rec["product_pairs_by_path"] = pairs_by_path
         kernels.append(rec)
+    htap.pop("mid_rows")
+    print(json.dumps({"htap_serving": {"htap": htap, "replica": replica,
+                                       "br": restored}, "card": card}),
+          flush=True)
     print(json.dumps({"programs": vec["programs"] + ml["programs"],
                       "card": card}), flush=True)
     log(f"card: {card}")

@@ -2,7 +2,9 @@
 PyTorch versions (range_filter_sums with folded product pairs too), the
 rule that a failed fused fragment fails its statement there, and the
 sort and runs lowerings of the general group-by against the CPU, with
-no blocking wait inside a fragment. This file imports nothing of
+no blocking wait inside a fragment; the delta fold against the CPU and
+under the sync guard, a replica's mirror on the card (and a grant loss
+there retried on the leader), and a restored table's first upload. This file imports nothing of
 tidb_tpu or jax, so it also runs on a machine that has the card and no
 JAX:
     python -m pytest tests/test_torch_cuda.py -q
@@ -483,3 +485,130 @@ def test_vector_ml_grant_loss_fails_statement_on_card(site, tmp_path):
     for g, w in zip(got, want):
         for a, b in zip(g[1:], w[1:]):
             assert abs(a - b) <= 1e-5 * abs(b) + 1e-6
+
+
+# ---- HTAP serving: the fold, the replica fabric, BR ---------------------
+
+def _lines_kit(device=None, n=3000):
+    from tidb_tpu_torch.testkit import TestKit
+    tk = TestKit(device=device)
+    tk.must_exec("create table t (id int primary key, k int, v int, "
+                 "s varchar(16))")
+    tk.must_exec("insert into t values " + ",".join(
+        f"({i}, {i % 7}, {i * 3}, 's{i % 11}')" for i in range(n)))
+    return tk
+
+
+LINES_Q = "select k, count(*), sum(v) from t group by k order by k"
+
+
+def test_fold_on_card_matches_cpu():
+    """copr/delta.py's fold program on CUDA tensors (deltas sent up
+    pinned and non-blocking) equals the same fold on CPU tensors."""
+    from tidb_tpu_torch.chunk.device import upload
+    from tidb_tpu_torch.copr.delta import _fold
+    rng = np.random.default_rng(5)
+    bufs = [_t(rng.integers(-1000, 1000, 4096)),
+            _t(rng.random(2048) < 0.5), _t(rng.standard_normal(1024))]
+    upds = [rng.integers(-9, 9, 512), rng.random(64) < 0.5,
+            rng.standard_normal(100)]
+    offs = [3000, 1984, 0]
+    want = _fold(bufs, [_t(u) for u in upds], offs)
+    got = _fold([b.cuda() for b in bufs],
+                [upload(u, torch.device("cuda")) for u in upds], offs)
+    for g, w, b in zip(got, want, bufs):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+        assert not torch.equal(w, b)            # the fold wrote a copy
+
+
+def test_folding_statement_under_sync_guard_on_card():
+    """A warm statement whose bind folds an insert into its resident
+    buffers makes no blocking copy: bind, fold and enqueue run under
+    set_sync_debug_mode("error") (only the result fetch waits), and the
+    rows equal the host twin's."""
+    from chip_smoke import StatementGuard
+    from tidb_tpu_torch.utils import phase
+    tk = _lines_kit()
+    tk.must_query(LINES_Q)
+    tk.must_exec("insert into t values " + ",".join(
+        f"({i}, {i % 7}, {i * 3}, 'n')" for i in range(3000, 3040)))
+    phase.reset()
+    with StatementGuard():
+        got = tk.must_query(LINES_Q).rows
+    assert phase.snap().get("delta_applies", 0) > 0
+    tk.domain.copr.use_device = False
+    assert got == tk.must_query(LINES_Q).rows
+
+
+def test_mirror_runs_on_card_and_serves():
+    """A replica's mirror Domain runs on the leader's card and serves
+    routed resolved reads with the leader's rows."""
+    import time
+    tk = _lines_kit()
+    try:
+        rep = tk.domain.replicas.provision(1)[0]
+        assert rep.mirror.copr.device.type == "cuda"
+        deadline = time.time() + 30
+        while rep.state != "serving" and time.time() < deadline:
+            time.sleep(0.02)
+        want = tk.must_query(LINES_Q).rows
+        tk.must_exec("set tidb_tpu_analytic_read_mode = 'resolved'")
+        for _ in range(200):
+            got = tk.must_query(LINES_Q).rows
+            if tk.sess._stmt_route.startswith("replica"):
+                break
+            time.sleep(0.02)
+        assert tk.sess._stmt_route == "replica-0" and got == want
+        # a 3,000-row group-by is a reader DAG on the mirror's card
+        assert rep.mirror.metrics.get("copr_device_exec", 0) > 0
+    finally:
+        tk.domain.close()
+
+
+def test_replica_grant_loss_retries_on_leader_on_card():
+    """A grant loss at replica/mid-stmt is reported to supervision and
+    the statement retries once on the leader, on the card, with the
+    leader's rows."""
+    import time
+    from tidb_tpu_torch.utils import failpoint
+    from tidb_tpu_torch.utils import metrics as mu
+    tk = _lines_kit()
+    try:
+        rep = tk.domain.replicas.provision(1)[0]
+        deadline = time.time() + 30
+        while rep.state != "serving" and time.time() < deadline:
+            time.sleep(0.02)
+        want = tk.must_query(LINES_Q).rows
+        tk.must_exec("set tidb_tpu_analytic_read_mode = 'resolved'")
+        before = mu.REPLICA_ROUTE.labels("degraded_midstmt").value
+        d0 = tk.domain.metrics.get("copr_device_exec", 0)
+        failpoint.enable("replica/mid-stmt", "error:grant_lost")
+        try:
+            got = tk.must_query(LINES_Q).rows
+        finally:
+            failpoint.disable("replica/mid-stmt")
+        assert got == want
+        assert tk.sess._stmt_route == "degraded_midstmt"
+        assert mu.REPLICA_ROUTE.labels("degraded_midstmt").value > before
+        assert any(v for k, v in tk.domain.metrics.items()
+                   if k.startswith("replica_midstmt_"))
+        assert tk.domain.metrics.get("copr_device_exec", 0) > d0
+    finally:
+        tk.domain.close()
+
+
+def test_restored_table_first_statement_uploads_on_card(tmp_path):
+    """DROP TABLE and RESTORE bring the old table id back; the resident
+    store keys on the table's uid, so the first statement uploads the
+    restored columns and returns the restored rows."""
+    from tidb_tpu_torch.utils import phase
+    tk = _lines_kit()
+    want = tk.must_query(LINES_Q).rows
+    tid = tk.domain.infoschema().table_by_name("test", "t").id
+    tk.must_exec(f"backup database test to 'local://{tmp_path}/bk'")
+    tk.must_exec("drop table t")
+    tk.must_exec(f"restore database test from 'local://{tmp_path}/bk'")
+    assert tk.domain.infoschema().table_by_name("test", "t").id == tid
+    phase.reset()
+    assert tk.must_query(LINES_Q).rows == want
+    assert phase.snap().get("upload_bytes", 0) > 0

@@ -2,7 +2,8 @@
 with its dimension probes; Q17, with a materialized dimension; a
 reader-DAG top-n; an ORDER BY, a window function and a hash join through
 the executor's device hooks; an exact vector search; CREATE MODEL and
-predict(), standalone and fused in a filter), its range lowering and its
+predict(), standalone and fused in a filter; a BACKUP/RESTORE round trip
+and a statement routed to a read replica), its range lowering and its
 wire server with jax and tidb_tpu blocked from import, no module of it
 (nor chip_smoke.py) imports them,
 and its entry points refuse to run on the host unless asked to."""
@@ -101,6 +102,32 @@ cnt = tk.must_query("select count(*) from orders where predict(lin, "
                     "o_shippriority, o_custkey) > -100").rows
 assert cnt == tk.must_query("select count(*) from orders where "
                             "o_custkey < 100.5").rows, cnt
+# BR: a snapshot of two tables restored into a fresh store
+bk = os.path.join(tempfile.mkdtemp(), "bk")
+tk.must_exec(f"backup database test to 'local://{bk}'")
+tk2 = TestKit(device="cpu")
+tk2.must_exec(f"restore database test from 'local://{bk}'")
+for q in ("select count(*), sum(o_totalprice) from orders",
+          "select * from docs order by id"):
+    assert tk2.must_query(q).rows == tk.must_query(q).rows, q
+# the read-replica fabric: a mirror on the leader's device serves a
+# resolved read of a table written through DML
+import time
+reps = tk.domain.replicas.provision(1)
+t0 = time.time()
+while reps[0].state != "serving" and time.time() - t0 < 30:
+    time.sleep(0.02)
+assert reps[0].mirror.copr.device.type == "cpu", reps[0].state
+tk.must_exec("set tidb_tpu_analytic_read_mode = 'resolved'")
+rq = "select count(*), sum(id) from docs"
+want = tk.must_query(rq).rows
+for _ in range(200):
+    got = tk.must_query(rq).rows
+    if tk.sess._stmt_route.startswith("replica"):
+        break
+    time.sleep(0.02)
+assert tk.sess._stmt_route == "replica-0" and got == want, got
+tk.domain.close()
 srv.shutdown()
 st.shutdown()
 bad = [m for m in sys.modules if m in ("jax", "jaxlib", "tidb_tpu")
@@ -149,7 +176,10 @@ def test_no_jax_or_reference_imports():
     paths = [os.path.relpath(p, ROOT) for p in _sources()]
     for hook in ("executor/sort_device.py", "executor/window_device.py",
                  "ops/device_join.py", "vector/runtime.py",
-                 "vector/kernels.py", "ml/runtime.py", "ml/kernels.py"):
+                 "vector/kernels.py", "ml/runtime.py", "ml/kernels.py",
+                 "replica/manager.py", "br/snapshot.py", "br/restore.py",
+                 "br/logformat.py", "tools/br.py", "tools/objstore.py",
+                 "tools/dump.py"):
         assert os.path.join("tidb_tpu_torch", hook) in paths
     found = []
     for path in _sources():
@@ -168,25 +198,21 @@ def test_testkit_refuses_host_without_cuda(monkeypatch):
     assert TestKit(device="cpu").domain.copr.device.type == "cpu"
 
 
-@pytest.mark.parametrize("sql", [
-    "backup database test to 'local:///nonexistent-dir'",
-    "admin changefeed create cf sink 'replica://r1'",
-])
-def test_unported_surfaces_fail_clearly(sql):
-    """A statement that needs a surface the port does not carry yet
-    fails with a clear error instead of reaching for tidb_tpu."""
+@pytest.mark.parametrize("surface", ["cluster_transport"])
+def test_unported_surfaces_fail_clearly(surface):
+    """A surface the port does not carry yet fails with a clear error
+    instead of reaching for tidb_tpu."""
     from tidb_tpu_torch.errors import UnsupportedError
-    from tidb_tpu_torch.testkit import TestKit
-    tk = TestKit(device="cpu")
-    tk.must_exec("create table v (id int primary key, a int, e vector(3))")
+    from tidb_tpu_torch.owner import manager
     with pytest.raises(UnsupportedError, match="not yet ported"):
-        tk.must_exec(sql)
+        manager._RemoteLeaseStore(worker_client=None)
 
 
 @pytest.mark.parametrize("case", ["create_model", "vector_index",
-                                  "predict"])
+                                  "predict", "backup", "replica_sink"])
 def test_ported_surfaces_run(case, tmp_path):
-    """Vector indexes, CREATE MODEL and predict() run and give their
+    """Vector indexes, CREATE MODEL, predict(), BACKUP (restored into a
+    fresh store) and a replica:// changefeed run and give their
     result."""
     import numpy as np
     from tidb_tpu_torch.testkit import TestKit
@@ -205,6 +231,29 @@ def test_ported_surfaces_run(case, tmp_path):
         assert [r[0] for r in tk.must_query(
             "select id from v order by vec_l2_distance(e, '[0,1,0]') "
             "limit 1").rows] == [2]
+        return
+    if case == "backup":
+        bk = str(tmp_path / "bk")
+        assert tk.must_exec(
+            f"backup database test to 'local://{bk}'").affected == 1
+        tk2 = TestKit(device="cpu")
+        tk2.must_exec(f"restore database test from 'local://{bk}'")
+        assert tk2.must_query("select id, a, e from v order by id").rows \
+            == tk.must_query("select id, a, e from v order by id").rows
+        return
+    if case == "replica_sink":
+        import time
+        rep = tk.domain.replicas.provision(1)[0]
+        tk.must_exec("admin changefeed create cf sink 'replica://0'")
+        assert "cf" in tk.domain.cdc.feeds
+        leader = tk.must_query("select * from v order by id").rows
+        deadline = time.time() + 10
+        while time.time() < deadline and \
+                rep.sink.mirror_rows("test", "v") != leader:
+            time.sleep(0.02)
+        assert rep.sink.mirror_rows("test", "v") == leader
+        assert len(leader) == 3
+        tk.domain.close()
         return
     tk.must_exec(f"create model m from '{npz}'")
     if case == "create_model":

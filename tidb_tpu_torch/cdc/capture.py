@@ -208,10 +208,11 @@ class Capture:
             before = (decode_row_value(before_raw)
                       if before_raw is not None else None)
             after = decode_row_value(value) if value is not None else None
-            if before is None and after is None:
+            if before is None and after is None and \
+                    not self._bulk_row_deleted(table_id, handle, commit_ts):
                 continue              # delete of a never-present row
-            op = (OP_INSERT if before is None
-                  else OP_DELETE if after is None else OP_UPDATE)
+            op = (OP_DELETE if after is None
+                  else OP_INSERT if before is None else OP_UPDATE)
             events.append(RowEvent(
                 commit_ts=commit_ts, db=db_name, table=info.name,
                 table_id=table_id, handle=handle, op=op,
@@ -222,6 +223,19 @@ class Capture:
             ddl.schema_version = self._schema_version_of(mutations)
             events.insert(0, ddl)
         return events
+
+    def _bulk_row_deleted(self, table_id, handle, commit_ts) -> bool:
+        """Whether a delete of a key with no row KV history removed a
+        bulk-loaded row (IMPORT INTO, RESTORE and bulk_append write no
+        row KV, so MVCC has no old value for it): the columnar table
+        holds the handle, deleted by this very commit. Such a delete
+        is an event (old value unknown): a log backup that dropped it
+        would bring the row back at a point-in-time restore."""
+        ctab = self.domain.columnar.tables.get(table_id)
+        if ctab is None or not ctab.bulk_rows:
+            return False
+        pos = ctab.handle_pos.get(handle)
+        return pos is not None and int(ctab.delete_ts[pos]) == commit_ts
 
     @staticmethod
     def _schema_version_of(mutations) -> int:

@@ -171,7 +171,10 @@ class TableSink:
     def __init__(self, source_domain, mirror_domain=None):
         from ..session import Session, new_store
         self.source = source_domain
-        self.mirror = mirror_domain or new_store(None)
+        # a mirror runs on its source's device (new_store's default is
+        # the card)
+        self.mirror = mirror_domain or new_store(
+            None, device=source_domain.copr.device)
         self._sess = Session(self.mirror)
         self._mu = threading.Lock()
         self._mirror_tids: dict = {}    # (db, table) -> mirror table id
@@ -298,8 +301,7 @@ class LogBackupSink:
     name = "logbackup"
 
     def __init__(self, path: str, source_domain=None):
-        from ..unported import not_ported
-        raise not_ported("the logbackup:// sink (BR)")
+        from ..br import logformat
         self._fmt = logformat
         self.path = path
         self.source = source_domain
@@ -363,8 +365,11 @@ def make_sink(uri: str, source_domain):
     u = uri.strip()
     if u.startswith("replica://"):
         rid = u[len("replica://"):]
-        from ..unported import not_ported
-        raise not_ported("the replica:// sink (replica fabric)")
+        try:
+            return source_domain.replicas.sink_for(int(rid))
+        except (TypeError, ValueError):
+            raise TiDBError("replica sink needs a numeric id: "
+                            "replica://0") from None
     if u in ("blackhole", "blackhole://"):
         return BlackholeSink()
     if u.startswith("file://"):

@@ -81,7 +81,7 @@ from ..utils import phase
 from ..utils import device_guard
 from ..utils import metrics as _metrics
 from ..utils.torchcfg import INT64, resolve_device
-from ..chunk.device import shape_bucket, to_tensor
+from ..chunk.device import shape_bucket, upload
 from ..chunk.column import Column
 from ..chunk.chunk import Chunk
 from ..ops import scan_kernels
@@ -181,7 +181,7 @@ class CoprExecutor:
             arr = np.concatenate(
                 [arr, np.full(cap - len(arr), pad_fill,
                               dtype=arr.dtype)])
-        dev = to_tensor(arr, self.device)
+        dev = upload(arr, self.device)
         moved = dev.numel() * dev.element_size()
         phase.add("upload_s", time.perf_counter() - t0)
         phase.add("upload_bytes", moved)
@@ -737,21 +737,22 @@ class CoprExecutor:
                 d = data
                 if len(d) != cap:
                     d = np.concatenate([d, np.zeros(cap - m, dtype=d.dtype)])
-                jd = to_tensor(d, self.device)
+                jd = upload(d, self.device)
                 jn = None
                 if nulls is not None:
                     nl = np.concatenate(
                         [nulls, np.ones(cap - m, dtype=bool)]) \
                         if len(nulls) != cap else nulls
-                    jn = to_tensor(nl, self.device)
+                    jn = upload(nl, self.device)
             jcols[k] = (jd, jn, sdict)
         # the validity mask is per-dispatch scratch (MVCC visibility at
         # this read ts), uploaded every call and counted apart from the
-        # resident columns' upload_bytes
+        # resident columns' upload_bytes; like every upload here it is a
+        # pinned, non-blocking copy on the card
         vv = np.concatenate([v, np.zeros(cap - m, dtype=bool)]) \
             if len(v) != cap else v
         phase.add("mask_upload_bytes", vv.nbytes)
-        return jcols, to_tensor(vv, self.device)
+        return jcols, upload(vv, self.device)
 
     def _dev_put_append(self, key, arr_np, want, cap, uid, version,
                         epoch, start, span, pad_fill=0):

@@ -53,9 +53,7 @@ import time
 
 import numpy as np
 
-import torch
-
-from ..chunk.device import shape_bucket
+from ..chunk.device import shape_bucket, upload
 from ..utils import device_guard, env_int, phase
 from ..utils import metrics as _metrics
 
@@ -211,15 +209,16 @@ class DeltaMaintainer:
                 _metrics.DELTA_APPLY.labels("compacted").inc()
                 continue
             want = n - start if span is None else min(n - start, span)
-            if want <= 0 or want < rows or want > cap:
-                # shrunk (stale snapshot of a gc) or grew past the
-                # padding bucket: the entry is superseded
+            if want <= 0 or want > cap:
+                # grew past the padding bucket: the entry is superseded
                 store.drop(key, "delta_compact")
                 _metrics.DELTA_APPLY.labels("compacted").inc()
                 continue
-            if want == rows:
-                # delete/update tombstone folding: only the derived
-                # validity mask changed; the data tail is untouched
+            if want <= rows:
+                # delete/update tombstone folding (only the derived
+                # validity mask changed; the data tail is untouched), or
+                # a concurrent fold already carried the entry past the
+                # rows read above: not a shrink (a gc changes the epoch)
                 if store.advance_version(key, version):
                     _metrics.DELTA_APPLY.labels("advanced").inc()
                     advanced += 1
@@ -270,15 +269,16 @@ class DeltaMaintainer:
         if out is None:
             return None
         new = out[0]
+        phase.add("upload_bytes", delta.size * delta.dtype.itemsize)
         store = self.copr._dev_store
         if not store.apply_delta(key, new, want, version,
                                  expect_rows=rows):
-            # a concurrent fold advanced the entry first; use what the
-            # store holds if it covers the snapshot
+            # a concurrent fold advanced the entry first: use what the
+            # store holds if it covers the snapshot, else this patch
+            # (right for this snapshot; a drop and a full upload would
+            # throw away the winner's buffer too)
             ent = store.get_appendable(key)
-            if ent is not None and ent[1] >= want:
-                return ent[0]
-            return None
+            return ent[0] if ent is not None and ent[1] >= want else new
         _metrics.DELTA_APPLY.labels("applied").inc()
         _metrics.DELTA_APPLY_BYTES.inc(item.dbytes)
         avoided = cap * delta.dtype.itemsize - item.dbytes
@@ -286,7 +286,6 @@ class DeltaMaintainer:
             _metrics.DELTA_REUPLOAD_AVOIDED_BYTES.inc(avoided)
         phase.inc("delta_applies")
         phase.add("delta_bytes", item.dbytes)
-        phase.add("upload_bytes", delta.size * delta.dtype.itemsize)
         return new
 
     def _prune_locked(self, d: dict):
@@ -378,8 +377,9 @@ class DeltaMaintainer:
         if kern is None:
             kern = kc.put(("delta",), _fold)
         bufs = tuple(it.dev for it in items)
-        upds = tuple(torch.from_numpy(np.ascontiguousarray(it.upd)).to(
-            it.dev.device) for it in items)
+        # pinned, non-blocking on the card: a copy from pageable memory
+        # would hold the host until the card is done with it
+        upds = tuple(upload(it.upd, it.dev.device) for it in items)
         offs = tuple(int(it.off) for it in items)
         return kern(bufs, upds, offs)
 

@@ -244,14 +244,21 @@ class DeviceResidentStore:
         from keep_version (None keep_version drops them all). Called at
         bind time with the table's current version: a DML commit or
         schema change leaves no stale device memory behind, and
-        nothing of any other uid is touched.
+        nothing of any other uid is touched. With a keep_version the
+        appendable buffers stay: they are the delta fold's to patch or
+        drop, and right at any version (a bind tail-patches one that
+        fell behind). Under concurrent commits a sweep at a version
+        newer than the fold's, or past a buffer a racing bind inserted
+        after the fold, would drop live buffers for the next bind to
+        upload whole.
         -> buffers dropped."""
         with self._mu:
             keys = self._by_uid.get(uid)
             if not keys:
                 return 0
             stale = [k for k, v in keys.items()
-                     if keep_version is None or v != keep_version]
+                     if keep_version is None or
+                     (v != keep_version and k not in self._append)]
             for k in stale:
                 self._drop_locked(k, "version")
             return len(stale)

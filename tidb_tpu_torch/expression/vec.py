@@ -335,7 +335,8 @@ def _dict_table(ctx, sdict: StringDict, fn, dtype, key=None):
     """Host-compute fn over dictionary values -> lookup table (device
     const); cached under `key` (_dict_cached) when the caller gives one."""
     def build():
-        vals = sdict.values
+        # a copy: a concurrent commit may grow the dictionary meanwhile
+        vals = list(sdict.values)
         tbl = np.empty(max(len(vals), 1), dtype=dtype)
         for i, s in enumerate(vals):
             tbl[i] = fn(s)
@@ -350,8 +351,9 @@ def _dict_transform(ctx, codes, nulls, sdict, fn, key=None):
     Cached under `key` (_dict_cached) when the caller gives one."""
     def build():
         out_dict = StringDict()
-        mapping = np.empty(max(len(sdict.values), 1), dtype=np.int32)
-        for i, s in enumerate(sdict.values):
+        vals = list(sdict.values)       # grows under concurrent commits
+        mapping = np.empty(max(len(vals), 1), dtype=np.int32)
+        for i, s in enumerate(vals):
             mapping[i] = out_dict.encode_one(fn(s))
         mtab = ctx.xp.asarray(mapping) if not ctx.host else mapping
         # the output strings: about 64 bytes each in a list and an index

@@ -510,8 +510,8 @@ class DDLJobRunner:
         lives in br/restore.py (schema -> import -> replay); this
         runner contributes the durable queue, the checkpointed step
         txns and restart re-entry via resume_pending."""
-        from ..unported import not_ported
-        raise not_ported("RESTORE")
+        from ..br import restore as br_restore
+        br_restore.run_restore_job(self, job, cancel_check)
 
     def _run_create_model(self, job, cancel_check):
         """CREATE MODEL as a resumable job — the weight-blob/registry/
@@ -712,8 +712,8 @@ class DDLJobRunner:
             elif job.type == TYPE_DROP_INDEX:
                 self._rollback_drop_index(job)
             elif job.type == TYPE_RESTORE:
-                from ..unported import not_ported
-                raise not_ported("RESTORE")
+                from ..br import restore as br_restore
+                br_restore.rollback_restore(self, job)
             elif job.type == TYPE_CREATE_MODEL:
                 from ..ml import ddl as ml_ddl
                 ml_ddl.rollback_create_model(self, job)

@@ -264,10 +264,11 @@ class Domain:
         # CDC-fed mirror domains + the session router's pick() seam.
         # Created BEFORE resume_persisted so a persisted __replica_*
         # feed can rebuild its replica through make_sink("replica://N")
-        # not yet ported: the read-replica fabric (tidb_tpu/replica)
-        self.replicas = None
+        from ..replica import ReplicaManager
+        self.replicas = ReplicaManager(self)
         if data_dir:
             self.cdc.resume_persisted()
+            self.replicas.resume()
             self.ddl_jobs.resume_pending()
 
     def close(self):
@@ -276,6 +277,7 @@ class Domain:
         what the capture seam already published), then stop the
         remaining changefeed workers. Idempotent; no worker thread
         survives it and no acked-but-unapplied batch is left behind."""
+        self.replicas.shutdown()
         self.cdc.shutdown()
 
     def _open_wal(self, data_dir):

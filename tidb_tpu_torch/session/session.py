@@ -1046,8 +1046,6 @@ class Session:
             return ResultSet()
         if isinstance(stmt, ast.BRStmt):
             self.commit()
-            from ..unported import not_ported
-            raise not_ported("BACKUP/RESTORE")
             if stmt.kind == "backup_log":
                 # legacy one-shot WAL copy (wallclock PITR); the
                 # continuous log backup is the logbackup:// changefeed
@@ -1509,6 +1507,11 @@ class Session:
                 # system schemas are not replicated and a temp table
                 # exists only in THIS session — leader serves both
                 return None
+        if self._reads_bulk_rows(plan):
+            # bulk-loaded rows (IMPORT, RESTORE, bulk_append) write no
+            # row KV, so no changefeed carries them: a mirror lacks them
+            self.domain.inc_metric("replica_bulk_table_leader")
+            return None
         try:
             max_lag = int(self.vars.get("tidb_tpu_replica_max_lag_ms"))
             picked = rm.pick(max_lag,
@@ -1553,6 +1556,21 @@ class Session:
         ectx.finish()
         self._finish_stmt()
         return rs
+
+    def _reads_bulk_rows(self, plan) -> bool:
+        """True when a table the plan reads holds rows appended in bulk
+        on the leader."""
+        dom = self.domain
+        isch = dom.infoschema()
+        for rdb, rtbl in getattr(plan, "read_tables", ()):
+            try:
+                info = isch.table_by_name(rdb, rtbl)
+            except Exception:           # noqa: BLE001 — view, dropped
+                continue
+            ctab = dom.columnar.tables.get(info.id)
+            if ctab is not None and ctab.bulk_rows:
+                return True
+        return False
 
     def _exec_lock_tables(self, stmt):
         """LOCK TABLES (reference pkg/ddl table locks + the
