@@ -22,7 +22,15 @@ recall@10 >= 0.95 against a float64 oracle, a stream of inserts folded
 through the tail patch and the index's delta path) and in-SQL inference
 (CREATE MODEL from seeded npz files; predict() fused in a filter over
 SF1 lineitem, through masked_sums, and standalone over orders), each
-held to its host twin in the same process, and Q6, Q1, the global
+held to its host twin in the same process, then the MPP mesh (the
+Domain's copr over four shards of the card: Q1, Q6, the global
+aggregate, Q3, Q5, Q12 and tests/test_mpp.py's grouped statement as
+mesh programs that launch the scan kernels once per shard and merge by
+psum, a fused join whose orders dim is over the broadcast threshold and
+a 90 %-hot-key join of generated tables through the all_to_all shuffle,
+EXPLAIN of Q3 == the reference's exchange tree; each held to the
+committed rows or the host twin, its route and exchange counted, warm
+within 2 dispatches, 1 sync and no upload), and Q6, Q1, the global
 aggregate, Q3 and Q5 again through the package's MySQL wire server,
 with a raw-socket client. Then the phases that write (HTAP serving):
 BACKUP DATABASE of the SF1 tables with a logbackup:// changefeed armed;
@@ -55,9 +63,12 @@ Run from the repository root: `python3 chip_smoke.py`. It needs one
 CUDA device and the CUDA toolkit (nvcc), and exits non-zero, printing no
 result, when either is missing or any phase fails. The last lines of
 its output are a `{"htap_serving": {...}}` JSON line (the write
-phases' figures), a `{"programs": [...]}` JSON line (the vector and
+phases' figures), a `{"mpp_mesh": {...}}` JSON line (the mesh
+statements' warm ms beside their single-card or host-twin ms, exchange
+bytes, peak device memory), a `{"programs": [...]}` JSON line (the vector and
 inference programs' device ms beside their bounds), the card's name and
-power limit, a `{"kernels": [...]}` JSON line and
+power limit, a `{"kernels": [...]}` JSON line (each kernel's launches
+by path, the mesh's under "mpp") and
 `{"ok": true, "device": {...}}`."""
 from __future__ import annotations
 
@@ -1962,6 +1973,243 @@ def ml_price(tk):
     return ctab.data[tbl.find_column("l_extendedprice").id][:ctab.n]
 
 
+# the MPP mesh phase: SF1 over MPP_SHARDS shards of the one card (the
+# four-chip layout mapped onto one card), with tidb_enable_mpp on. Each
+# case: (name, the kernel each shard launches once per statement or
+# None, the exchange a statement counts, the
+# tidb_broadcast_join_threshold_count it runs under (None: the
+# default), whether it is held to the committed SF1 rows (else to the
+# host twin)). "grouped" is tests/test_mpp.py's grouped statement with
+# filters over SF1 lineitem (min/max: no kernel), "shuffle" a fused join
+# whose orders dim is over the threshold (the Hash exchange), "skew" the
+# shape of test_shuffle_join_hot_key_skew: 90 % of the probe keys hot
+MPP_SHARDS = 4
+MPP_GROUPED = ("select l_shipmode, count(*), sum(l_quantity), "
+               "min(l_discount), max(l_tax) from lineitem where "
+               "l_quantity > 10 group by l_shipmode order by l_shipmode")
+MPP_SHUFFLE = ("select o_orderpriority, sum(l_quantity), count(*) from "
+               "lineitem, orders where l_orderkey = o_orderkey group by "
+               "o_orderpriority order by o_orderpriority")
+MPP_SKEW = ("select g, sum(v), count(*) from skew_f, skew_d where d = id "
+            "group by g order by g")
+SKEW_FACT_ROWS, SKEW_DIM_ROWS, SKEW_HOT = 2_000_000, 200_000, 13
+MPP_CASES = (("q1", "dense_group_sums", "passthrough", None, True),
+             ("q6", "range_filter_sums", "passthrough", None, True),
+             ("qsum", "masked_sums", "passthrough", None, True),
+             ("q3", None, "passthrough", None, True),
+             ("q5", "dense_group_sums", "passthrough", None, True),
+             ("q12", "dense_group_sums", "passthrough", None, True),
+             ("grouped", None, "passthrough", None, False),
+             ("shuffle", None, "hash", 1_000_000, False),
+             ("skew", None, "hash", SKEW_DIM_ROWS - 1, False))
+# the reference's EXPLAIN of Q3 with tidb_enable_mpp on (tidb_tpu on 8
+# virtual devices; estRows left out, they depend on the scale): id, info
+MPP_Q3_EXPLAIN = (
+    ("Projection_0", "lineitem.l_orderkey, sum(*(lineitem.l_extendedprice,"
+     " -(1, lineitem.l_discount))), orders.o_orderdate, "
+     "orders.o_shippriority"),
+    ("└─TopN_1", "sum(*(lineitem.l_extendedprice, -(1, "
+     "lineitem.l_discount))) desc, orders.o_orderdate, offset:0, "
+     "count:10"),
+    ("  └─HashAgg_2", "mode:final, group:[lineitem.l_orderkey, "
+     "orders.o_orderdate, orders.o_shippriority], funcs:[sum(*("
+     "lineitem.l_extendedprice, -(1, lineitem.l_discount)))]"),
+    ("    └─ExchangeReceiver_3", ""),
+    ("      └─ExchangeSender_4", "type:PassThrough, fragment:1"),
+    ("        └─FusedPipeline_5", "fact:lineitem, dims:[orders[o_orderkey "
+     "= lineitem.l_orderkey], customer[c_custkey = orders.o_custkey]], "
+     "group:[lineitem.l_orderkey, orders.o_orderdate, "
+     "orders.o_shippriority], aggs:[sum(*(lineitem.l_extendedprice, -(1, "
+     "lineitem.l_discount)))]"),
+    ("          └─ExchangeReceiver_6", ""),
+    ("            └─ExchangeSender_7", "type:Broadcast, fragment:2"),
+    ("              └─TableReader_8", "table:orders, filters:[<("
+     "orders.o_orderdate, '1995-03-15')]"),
+    ("          └─ExchangeReceiver_9", ""),
+    ("            └─ExchangeSender_10", "type:Broadcast, fragment:3"),
+    ("              └─TableReader_11", "table:customer, filters:[=("
+     "customer.c_mktsegment, 'BUILDING')]"))
+MPP_ROUTE = ("fused_pipeline_mpp_hit", "copr_mpp_exec", "fused_pipeline_hit",
+             "copr_device_exec", "copr_host_exec", "fused_pipeline_fallback",
+             "fused_pipeline_error", "fused_shuffle_join")
+
+
+def skew_load(tk):
+    """The skew case's tables, bulk-loaded from a seeded generator:
+    skew_d(id, g = id % 16) and skew_f(k, d, v) with 90 % of d the hot
+    key SKEW_HOT (all its rows hash to one shard), the rest uniform over
+    the dim's keys and 1 % past them (no match)."""
+    import numpy as np
+    from tidb_tpu_torch.testkit import import_columns
+    rng = np.random.default_rng(SEED)
+    tk.must_exec("create table skew_d (id bigint primary key, g bigint)")
+    tk.must_exec("create table skew_f (k bigint primary key, d bigint, "
+                 "v bigint)")
+    ids = np.arange(1, SKEW_DIM_ROWS + 1, dtype=np.int64)
+    import_columns(tk, "skew_d", {"id": (ids, None, None),
+                                  "g": (ids % 16, None, None)})
+    n = SKEW_FACT_ROWS
+    d = np.where(rng.random(n) < 0.9, SKEW_HOT,
+                 rng.integers(1, SKEW_DIM_ROWS * 101 // 100, n))
+    import_columns(tk, "skew_f", {
+        "k": (np.arange(1, n + 1, dtype=np.int64), None, None),
+        "d": (d.astype(np.int64), None, None),
+        "v": (rng.integers(0, 1000, n).astype(np.int64), None, None)})
+
+
+def mpp_sql(tk, exp, name):
+    """-> (sql, expected rows or None: held to the host twin)."""
+    if name == "grouped":
+        return MPP_GROUPED, None
+    if name == "shuffle":
+        return MPP_SHUFFLE, None
+    if name == "skew":
+        return MPP_SKEW, None
+    return sql_and_rows(tk, exp, name)
+
+
+def phase_mpp(tk, exp, guard, single_meds):
+    """The MPP mesh path at SF1 over MPP_SHARDS shards of the card: the
+    Domain's copr takes a mesh of the card repeated MPP_SHARDS times (the
+    lazily resolved mesh of copr/dag_exec.py _get_mesh; restored after),
+    so the loaded tables are reused and become sharded resident copies
+    beside the single-device ones. Each case cold once, warm WARM_RUNS
+    times, then once more with every kernel call a shard makes held to
+    its plain version on the tensors the shard handed it; every program
+    enqueue under the sync guard. Rows == the committed SF1 rows or the
+    host twin's; every statement on the mesh route (no single-device
+    fragment, no fallback) with its exchange counted; warm: at most 2
+    dispatches, at most 1 sync, 0 upload bytes; a kernel case launches
+    its kernel once per shard. EXPLAIN of Q3 == the reference's tree.
+    -> {"ms": {case: warm median}, "single_ms", "exchange_bytes",
+    "peak_mib", "seconds"}."""
+    import torch
+    from collections import Counter
+    from tidb_tpu_torch.ops import scan_kernels as sk
+    from tidb_tpu_torch.parallel import make_mesh
+    from tidb_tpu_torch.utils import metrics as mu
+    from tidb_tpu_torch.utils import phase
+    t_phase = time.perf_counter()
+    dom = tk.domain
+    copr = dom.copr
+    saved = (copr.mesh_spec, copr._mesh)
+    copr.mesh_spec = make_mesh(devices=[copr.device] * MPP_SHARDS)
+    copr._mesh = None
+    if copr._get_mesh() is None or copr._get_mesh().size != MPP_SHARDS:
+        fail(f"no mesh of {MPP_SHARDS} shards: {copr._get_mesh()}")
+    t0 = time.perf_counter()
+    skew_load(tk)
+    log(f"mpp: skew tables loaded ({SKEW_FACT_ROWS} x {SKEW_DIM_ROWS} "
+        f"rows) {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    tk.must_exec("set @@tidb_enable_mpp = on")
+    out = {"ms": {}, "single_ms": {}, "exchange_bytes": {}}
+    bcast0 = mu.MPP_EXCHANGE.labels("broadcast").value
+    try:
+        got = [(r[0], r[-1]) for r in
+               tk.must_query("explain " + sql_and_rows(tk, exp, "q3")[0])
+               .rows]
+        if got != [tuple(r) for r in MPP_Q3_EXPLAIN]:
+            fail(f"mpp: EXPLAIN Q3 {got} != the reference's tree")
+        log("mpp: EXPLAIN Q3 == the reference's exchange tree (PassThrough"
+            " fragment 1, Broadcast fragments 2 and 3)")
+        for name, kernel, exch, bcast_t, committed in MPP_CASES:
+            sql, want = mpp_sql(tk, exp, name)
+            if bcast_t is not None:
+                tk.must_exec("set @@tidb_broadcast_join_threshold_count = "
+                             f"{bcast_t}")
+            if want is None:
+                want_rows, twin_ms = host_twin(tk, sql)
+                out["single_ms"][name] = twin_ms
+            warm, calls = [], []
+            for i in range(2 + WARM_RUNS):
+                checked = i == 1 + WARM_RUNS
+                m0 = {c: dom.metrics.get(c, 0) for c in MPP_ROUTE}
+                e0 = mu.MPP_EXCHANGE.labels(exch).value
+                c0 = dict(sk.COUNTS)
+                g0 = guard.calls
+                phase.reset()
+                t0 = time.perf_counter()
+                if checked:
+                    rows, calls = checked_kernels(
+                        lambda: tk.must_query(sql))
+                else:
+                    rows = tk.must_query(sql)
+                ms = (time.perf_counter() - t0) * 1e3
+                snap = phase.snap()
+                rows = rows._norm() if want is not None else rows.rows
+                if rows != (want if want is not None else want_rows):
+                    fail(f"mpp {name} run {i}: rows differ from the "
+                         f"{'committed rows' if committed else 'host twin'}"
+                         f": {rows[:5]}")
+                d = {c: dom.metrics.get(c, 0) - m0[c] for c in MPP_ROUTE}
+                mesh_route = d["fused_pipeline_mpp_hit"] + d["copr_mpp_exec"]
+                bad = {c: n for c, n in d.items() if n and c not in (
+                    "fused_pipeline_mpp_hit", "copr_mpp_exec",
+                    "fused_shuffle_join")}
+                if mesh_route != 1 or bad or \
+                        d["fused_shuffle_join"] != (exch == "hash"):
+                    fail(f"mpp {name} run {i}: route {d} "
+                         f"({dom.last_fused_reason})")
+                if mu.MPP_EXCHANGE.labels(exch).value - e0 < 1:
+                    fail(f"mpp {name} run {i}: no {exch} exchange counted")
+                disp, syncs = snap.get("dispatches", 0), snap.get("syncs", 0)
+                if guard.calls - g0 != disp:
+                    fail(f"mpp {name} run {i}: {disp} dispatches, "
+                         f"{guard.calls - g0} under the sync guard")
+                if i > 0 and (disp > 2 or syncs > 1 or
+                              snap.get("upload_bytes", 0)):
+                    fail(f"mpp {name} warm run {i}: {phase_line(snap)}")
+                if kernel is not None and \
+                        sk.COUNTS[kernel] - c0[kernel] != MPP_SHARDS:
+                    fail(f"mpp {name} run {i}: {kernel} launched "
+                         f"{sk.COUNTS[kernel] - c0[kernel]} times, expected "
+                         f"{MPP_SHARDS} (one per shard)")
+                if 0 < i and not checked:
+                    warm.append(ms)
+                kind = "cold" if i == 0 else "checked" if checked else "warm"
+                log(f"mpp {name} {kind} {ms:.2f} ms {phase_line(snap)} "
+                    f"mpp_exchanges={snap.get('mpp_exchanges', 0)} "
+                    f"mpp_exchange_bytes={snap.get('mpp_exchange_bytes', 0)}"
+                    f" shuffle_upload_bytes="
+                    f"{snap.get('shuffle_upload_bytes', 0)}")
+            out["exchange_bytes"][name] = snap.get("mpp_exchange_bytes", 0)
+            if kernel is not None and \
+                    sum(c[0] == kernel for c in calls) != MPP_SHARDS:
+                fail(f"mpp {name}: {len(calls)} kernel calls checked")
+            out["ms"][name] = statistics.median(warm)
+            if name in single_meds:
+                out["single_ms"][name] = single_meds[name]
+            log(f"mpp {name}: rows == "
+                f"{'committed rows' if committed else 'host twin'}; warm "
+                f"median {out['ms'][name]:.3f} ms against "
+                f"{out['single_ms'].get(name, float('nan')):.3f} ms "
+                f"{'single-card' if committed else 'host twin'}; kernel "
+                "calls == plain versions: " + ("; ".join(
+                    f"{n} {shape} x{k}" for (n, shape), k in
+                    sorted(Counter(calls).items())) or "none"))
+            if bcast_t is not None:
+                tk.must_exec("set @@tidb_broadcast_join_threshold_count = "
+                             "1024000")
+        if mu.MPP_EXCHANGE.labels("broadcast").value - bcast0 < 1:
+            fail("mpp: no broadcast exchange of a dim was counted")
+    finally:
+        copr.mesh_spec, copr._mesh = saved
+        # the later phases count the single-card store's buffers (the
+        # htap phase's folds and whole uploads): the mesh's sharded and
+        # replicated entries leave with the mesh
+        store = copr._dev_store
+        for key in list(store._entries):
+            if store.spec_of(key) in ("sharded", "replicated"):
+                store.drop(key, "invalidate")
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"mpp phase {out['seconds']:.1f} s; peak device memory "
+        f"{out['peak_mib']:.0f} MiB; broadcast exchanges "
+        f"{mu.MPP_EXCHANGE.labels('broadcast').value - bcast0}")
+    return out
+
+
 class WireClient:
     """A raw-socket MySQL 4.1 client: handshake v10 with
     mysql_native_password, COM_QUERY and text result sets. The wire
@@ -3076,6 +3324,10 @@ def main():
                      folds=False, kernels=("masked_sums",))
         log(f"ml phase {time.perf_counter() - t0:.1f} s; warm ms "
             f"{json.dumps(ml['ms'])}")
+        torch.cuda.empty_cache()
+        mpp = counted("mpp", lambda: phase_mpp(
+            tk, exp, guard, {**meds, **join_meds}))
+        torch.cuda.empty_cache()
     log(f"{guard.calls} fragment and program enqueues and "
         f"{sum(guard.hook_calls.values())} hook calls "
         f"({json.dumps(guard.hook_calls)}) ran under "
@@ -3116,6 +3368,7 @@ def main():
             "replaces": replaces[name],
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "mpp": by_path["mpp"][name],
             "max_abs_err": ERR[name], "ms": r[4], "plain_ms": r[5],
             "bound_ms": r[7], "bound_by": "bytes", "library_ms": r[6],
             "kernel_device_ms": r[9]}
@@ -3128,6 +3381,8 @@ def main():
     print(json.dumps({"htap_serving": {"htap": htap, "replica": replica,
                                        "br": restored}, "card": card}),
           flush=True)
+    print(json.dumps({"mpp_mesh": {"shards": MPP_SHARDS, **mpp},
+                      "card": card}), flush=True)
     print(json.dumps({"programs": vec["programs"] + ml["programs"],
                       "card": card}), flush=True)
     log(f"card: {card}")

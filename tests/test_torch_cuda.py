@@ -612,3 +612,47 @@ def test_restored_table_first_statement_uploads_on_card(tmp_path):
     phase.reset()
     assert tk.must_query(LINES_Q).rows == want
     assert phase.snap().get("upload_bytes", 0) > 0
+
+
+def test_mesh_of_four_shards_on_card():
+    """The MPP mesh on the card: four shards of one H100. Q6, Q1 and Q5
+    equal their numpy oracles on the mesh route; each shard launches the
+    scan kernel its layout takes; a shuffle join equals the broadcast
+    one; a mesh failure fails the statement and runs nothing on one
+    device; a Domain given no mesh on one card has none."""
+    from tidb_tpu_torch.bench import tpch
+    from tidb_tpu_torch.errors import DeviceUnavailableError
+    from tidb_tpu_torch.testkit import TestKit
+    from tidb_tpu_torch.utils import failpoint, phase
+    if torch.cuda.device_count() == 1:
+        assert TestKit().domain.copr._get_mesh() is None
+    tk = TestKit(mesh=4)
+    tpch.load_tpch(tk, sf=0.01, seed=3)
+    tk.must_exec("set @@tidb_mpp_min_rows = 0")
+    m = tk.domain.metrics
+    for q, kernel, oracle in (("q6", "range_filter_sums", tpch.q6_oracle),
+                              ("q1", "dense_group_sums", tpch.q1_oracle),
+                              ("q5", "dense_group_sums", tpch.q5_oracle)):
+        hits = m.get("fused_pipeline_mpp_hit", 0)
+        tk.must_query(tpch.QUERIES[q])               # cold
+        sk.reset_launches()
+        phase.reset()
+        assert tk.must_query(tpch.QUERIES[q])._norm() == oracle(tk)
+        snap = phase.snap()
+        assert m.get("fused_pipeline_mpp_hit", 0) == hits + 2, q
+        assert sk.COUNTS[kernel] == 4, (q, dict(sk.COUNTS))
+        assert snap.get("dispatches") == 1 and snap.get("syncs") == 1, snap
+        assert snap.get("upload_bytes", 0) == 0, snap
+    sql = ("select n_name, sum(c_acctbal), count(*) from customer, nation "
+           "where c_nationkey = n_nationkey group by n_name")
+    base = tk.must_query(sql)._norm()
+    tk.must_exec("set tidb_broadcast_join_threshold_count = 10")
+    tk.domain.invalidate_plan_cache()
+    n0 = m.get("fused_shuffle_join", 0)
+    assert tk.must_query(sql)._norm() == base
+    assert m.get("fused_shuffle_join", 0) == n0 + 1
+    failpoint.enable("device_guard/fused/mpp", "error:generic")
+    single = m.get("fused_pipeline_hit", 0)
+    with pytest.raises(DeviceUnavailableError, match="generic"):
+        tk.must_query(tpch.QUERIES["q6"])
+    assert m.get("fused_pipeline_hit", 0) == single

@@ -4,10 +4,12 @@ the residency append seam) must cost O(delta) upload bytes under a
 steady OLTP write stream, and resolved-mode analytic statements must
 read a consistent committed-data snapshot at the resolved floor, never
 the dirty session view. The reference's two mesh tests
-(TestMeshPlacements) need a device mesh, which the port does not carry
-yet. Beside the twins: the fold's upload (pinned, non-blocking on the
-card; no pageable Tensor.to and no torch.tensor) and the same resolved
-analytics under writes on the reference's TestKit and the port's."""
+(TestMeshPlacements) are twinned in tests/test_torch_mesh_residency.py.
+Beside the twins: the fold's upload (pinned, non-blocking on the card;
+no pageable Tensor.to and no torch.tensor), the same resolved analytics
+under writes on the reference's TestKit and the port's, and the share
+of resolved statements that fall back to the leader for staleness under
+TPC-H RF1/RF2 writers in both packages."""
 import numpy as np
 import pytest
 import torch
@@ -684,3 +686,116 @@ class TestResolvedParity:
                 if holder is not None:
                     holder.must_exec("rollback")
         assert got[0] == got[1]
+
+
+
+def _rf_staleness_shares(pkg, bounds=(5000, 200), rf_orders=750):
+    """chip_smoke.py's phase_htap recipe at SF0.01 through one package's
+    TestKit: two RF1/RF2 pairs (rf_orders new orders each) from two
+    writer threads while, for each staleness bound, two analyst sessions
+    run Q1 and Q6 in resolved mode, every other statement in a
+    transaction holding an insert. -> {bound: (resolved statements,
+    staleness fallbacks)}: each statement's routing decision is read
+    under a lock, so the fallback counter's step is its own."""
+    import threading
+    import chip_smoke as cs
+    if pkg == "ref":
+        from tidb_tpu.testkit import TestKit as Kit
+        from tidb_tpu.bench import tpch
+        from tidb_tpu.session.session import Session
+        from tidb_tpu.utils import metrics as pmu
+        kit = Kit()
+    else:
+        from tidb_tpu_torch.bench import tpch
+        from tidb_tpu_torch.session.session import Session
+        pmu = mu
+        kit = TestKit(device="cpu")
+    tpch.load_tpch(kit, sf=0.01, seed=7)
+    first = int(kit.must_query(
+        "select max(o_orderkey) from orders").rows[0][0]) + 1
+    ncust = int(kit.must_query("select count(*) from customer").rows[0][0])
+    rng = np.random.default_rng(7)
+    saved = cs.RF_ORDERS
+    cs.RF_ORDERS = rf_orders
+    try:
+        pairs = [cs.rf1_statements(rng, first + r * rf_orders, ncust)[0] +
+                 cs.rf2_statements(1 + r * rf_orders) for r in range(2)]
+    finally:
+        cs.RF_ORDERS = saved
+    counter = pmu.ANALYTIC_READS.labels("staleness_fallback")
+    counts = {b: [0, 0] for b in bounds}
+    lock = threading.Lock()
+    orig = Session._maybe_resolved_read
+
+    def decided(self, stmt, plan, ectx):
+        with lock:
+            f0 = counter.value
+            orig(self, stmt, plan, ectx)
+            bound = int(self.vars.get("tidb_tpu_analytic_max_staleness_ms"))
+            if bound in counts and \
+                    self.vars.get("tidb_tpu_analytic_read_mode") == \
+                    "resolved":
+                counts[bound][0] += 1
+                counts[bound][1] += int(counter.value - f0)
+    stop = threading.Event()
+    errors = []
+
+    def writer(w):
+        s = kit.new_session()
+        for sql in pairs[w]:
+            s.must_exec(sql)
+
+    def analyst(a, bound):
+        s = kit.new_session()
+        s.must_exec("set @@tidb_tpu_analytic_read_mode = 'resolved'")
+        s.must_exec(f"set @@tidb_tpu_analytic_max_staleness_ms = {bound}")
+        i = 0
+        try:
+            while not stop.is_set():
+                dirty = i % 2 == 1
+                if dirty:
+                    s.must_exec("begin")
+                    s.must_exec(cs.DIRTY_ROW)
+                s.must_query(tpch.ALL_QUERIES[("q1", "q6")[(a + i) % 2]])
+                if dirty:
+                    s.must_exec("rollback")
+                i += 1
+        except Exception as e:              # noqa: BLE001
+            errors.append(e)
+    analysts = [threading.Thread(target=analyst, args=(a, b))
+                for b in bounds for a in range(2)]
+    writers = [threading.Thread(target=writer, args=(w,)) for w in range(2)]
+    Session._maybe_resolved_read = decided
+    try:
+        for t in writers + analysts:
+            t.start()
+        for t in writers:
+            t.join()
+        stop.set()
+        for t in analysts:
+            t.join()
+    finally:
+        Session._maybe_resolved_read = orig
+    assert errors == []
+    return {b: tuple(c) for b, c in counts.items()}
+
+
+class TestResolvedStaleness:
+    def test_staleness_fallback_share_vs_reference(self, capsys):
+        """phase_htap's writers and analysts at SF0.01 on both packages
+        (does the port fall back to the leader under writes as the
+        reference does?): at the default 5,000 ms bound resolved
+        statements almost never fall back in either; at a 200 ms bound,
+        which the
+        writers' transactions do cross, both packages fall back on some
+        statements and serve others resolved. Each package's shares are
+        printed (pytest -s) for the record."""
+        got = {pkg: _rf_staleness_shares(pkg) for pkg in ("ref", "port")}
+        with capsys.disabled():
+            print("\nresolved statements, staleness fallbacks by bound: "
+                  f"{got}")
+        for pkg, by_bound in got.items():
+            n, f = by_bound[5000]
+            assert n > 0 and f <= 0.05 * n, (pkg, by_bound)
+            n, f = by_bound[200]
+            assert n > 0 and 0 < f < n, (pkg, by_bound)

@@ -2,8 +2,9 @@
 with its dimension probes; Q17, with a materialized dimension; a
 reader-DAG top-n; an ORDER BY, a window function and a hash join through
 the executor's device hooks; an exact vector search; CREATE MODEL and
-predict(), standalone and fused in a filter; a BACKUP/RESTORE round trip
-and a statement routed to a read replica), its range lowering and its
+predict(), standalone and fused in a filter; a BACKUP/RESTORE round trip,
+a statement routed to a read replica, and Q6 and Q3 over a four-shard
+MPP mesh), its range lowering and its
 wire server with jax and tidb_tpu blocked from import, no module of it
 (nor chip_smoke.py) imports them,
 and its entry points refuse to run on the host unless asked to."""
@@ -127,6 +128,17 @@ for _ in range(200):
         break
     time.sleep(0.02)
 assert tk.sess._stmt_route == "replica-0" and got == want, got
+# the MPP mesh: Q6 and Q3 over four shards, with their exchanges
+from tidb_tpu_torch.mpp import exec as _mpp_exec  # noqa: F401
+from tidb_tpu_torch.parallel import make_mesh  # noqa: F401
+tkm = TestKit(device="cpu", mesh=4)
+tpch.load_tpch(tkm, sf=0.01, seed=7)
+tkm.must_exec("set @@tidb_mpp_min_rows = 0")
+assert tkm.must_query(tpch.Q6)._norm() == rows
+assert tkm.must_query(tpch.Q3)._norm() == rows3
+assert tkm.domain.metrics.get("fused_pipeline_mpp_hit") == 2, \
+    tkm.domain.metrics
+assert "ExchangeSender" in str(tkm.must_query("explain " + tpch.Q3).rows)
 tk.domain.close()
 srv.shutdown()
 st.shutdown()
@@ -179,7 +191,8 @@ def test_no_jax_or_reference_imports():
                  "vector/kernels.py", "ml/runtime.py", "ml/kernels.py",
                  "replica/manager.py", "br/snapshot.py", "br/restore.py",
                  "br/logformat.py", "tools/br.py", "tools/objstore.py",
-                 "tools/dump.py"):
+                 "tools/dump.py", "mpp/fragment.py", "mpp/exec.py",
+                 "parallel/mesh.py", "parallel/dist.py"):
         assert os.path.join("tidb_tpu_torch", hook) in paths
     found = []
     for path in _sources():

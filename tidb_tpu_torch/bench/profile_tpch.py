@@ -29,9 +29,13 @@ each query
     kernel wrappers, fetch + compaction, final merge). cProfile slows
     Python code and not native code, so the shares lean towards Python.
 
+`--shards 4` runs the statements on the MPP mesh: the Domain's mesh is
+that many shards of the card, so each fused or reader aggregation is one
+mesh program (chip_smoke.py phase_mpp's cell).
+
 Run from the repository root on a machine with one CUDA card:
     python -m tidb_tpu_torch.bench.profile_tpch [--sf 1.0] [--seed 7]
-        [--runs 5] [--queries q6,q1,q3,q5]
+        [--runs 5] [--queries q6,q1,q3,q5] [--shards 1]
         [--out chiprun_out/profile_tpch.json]
 It prints one line per measurement and writes the whole record as JSON
 to --out. Without a CUDA device it exits non-zero."""
@@ -70,6 +74,10 @@ STAGES = [
     # slicing of its partials to ngroups, the dense decodes above
     ("consume", "copr/pipeline.py", "_consume"),
     ("final_merge", "executor/executors.py", "_merge_partials"),
+    # the MPP mesh (--shards): the fused route's sharded binds and its
+    # program (every shard's body, then the collective)
+    ("mesh_fused", "copr/pipeline.py", "_run_fused_mpp"),
+    ("mesh_program", "parallel/mesh.py", "program"),
     # a materialized dim's subplan (a hit costs the lookup alone) and
     # the reader DAGs on the card
     ("matdim", "copr/pipeline.py", "_materialized_dim_meta"),
@@ -185,6 +193,8 @@ def main(argv=None):
                     "SF1 only); at SF1 each is checked against the "
                     "committed rows, at other scale factors only q6, "
                     "q1, q3 and q5, against their numpy oracles")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="MPP mesh shards on the card (1: no mesh)")
     ap.add_argument("--out", default=os.path.join("chiprun_out",
                                                    "profile_tpch.json"))
     args = ap.parse_args(argv)
@@ -201,7 +211,7 @@ def main(argv=None):
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         else torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
-    tk = TestKit()
+    tk = TestKit(mesh=args.shards if args.shards > 1 else None)
     # a cold statement's column upload counts against its memory quota,
     # as in the reference: at SF10 Q6 uploads 1.9 GB, past the 1 GiB
     # default, so the session takes the quota an analytical deployment
@@ -213,6 +223,7 @@ def main(argv=None):
     tbl = tk.domain.infoschema().table_by_name("test", "lineitem")
     nrows = tk.domain.columnar.tables[tbl.id].n
     rec = {"card": card, "sf": args.sf, "seed": args.seed,
+           "shards": args.shards,
            "lineitem_rows": nrows, "runs": args.runs, "load_s": load_s,
            "peak_rss_gib_after_load": _peak_rss_gib(), "queries": {}}
     print(f"load SF{args.sf} seed {args.seed}: {nrows} lineitem rows in "
@@ -277,6 +288,8 @@ def main(argv=None):
                            if isinstance(v, (int, float))}
         r["fused_pipeline_hit"] = tk.domain.metrics.get(
             "fused_pipeline_hit", 0)
+        r["fused_pipeline_mpp_hit"] = tk.domain.metrics.get(
+            "fused_pipeline_mpp_hit", 0)
         r["last_fused_reason"] = tk.domain.last_fused_reason
 
         def run():
@@ -329,7 +342,8 @@ def main(argv=None):
                 "dispatches", "syncs", "fetches", "fetch_bytes", "sync_ms",
                 "upload_bytes", "mask_upload_bytes",
                 "hook_upload_bytes")) +
-            f"; fused hits so far {r['fused_pipeline_hit']}, last "
+            f"; fused hits so far {r['fused_pipeline_hit']} (on the mesh "
+            f"{r['fused_pipeline_mpp_hit']}), last "
             f"decline {r['last_fused_reason']}", flush=True)
         for phase_name in ("cold_stage_ms", "warm_stage_ms"):
             print(f"{q}: {phase_name} " + ", ".join(

@@ -58,7 +58,20 @@ fragment call of the device, reader or fused, goes through run_fragment.
 On the card a fragment that fails fails its statement; on the CPU it
 degrades to the host twin, as the reference does.
 
-Not yet ported: the one-hot lowering and the MPP mesh path.
+The MPP mesh route (reference _try_execute_mpp): with
+tidb_enable_mpp on, a mesh of two or more shards (the Domain's mesh
+argument, else every visible CUDA device) and at least
+tidb_mpp_min_rows rows, an aggregation DAG with a dense layout runs as
+ONE mesh program (copr_mpp_exec, backend device-mpp): its columns and
+validity mask stay resident row-sharded over the mesh (_dev_put_append
+/ _dev_put, spec "sharded"), each shard runs the partition's
+dense_agg_body — and so the same scan kernels — over its rows, and one
+psum merges the shards' dense tables (psum_dense_result). On the card a
+mesh run that fails fails its statement; it is never retried on one
+device. Below two shards the route declines and every path above runs
+as it does without a mesh.
+
+Not yet ported: the one-hot lowering.
 """
 from __future__ import annotations
 
@@ -130,7 +143,7 @@ class CoprExecutor:
     caches fragment callables and device-resident column buffers."""
 
     def __init__(self, engine, device_rows=None, use_device=True,
-                 dev_cache_bytes=8 << 30, device=None):
+                 dev_cache_bytes=8 << 30, device=None, mesh=None):
         self.engine = engine            # ColumnarEngine
         if device_rows is None:
             # partition size (rows per fragment call)
@@ -139,6 +152,11 @@ class CoprExecutor:
         self.device_rows = device_rows
         self.use_device = use_device
         self.device = resolve_device(device)
+        # the MPP mesh: a parallel.Mesh, an int (that many shards on
+        # self.device), or None (every visible CUDA device); resolved
+        # on first use by _get_mesh
+        self.mesh_spec = mesh
+        self._mesh = None
         # fragment selection (docs/PERFORMANCE.md): a filter/top-n-only
         # fragment below this many rows runs the host twin — its work
         # costs less than its dispatch and fetch. Aggregation fragments
@@ -172,17 +190,35 @@ class CoprExecutor:
         # host-side per-version metadata (learned pins / sizes)
         self._host_cache: dict = {}
 
-    def _upload_padded(self, arr_np, cap, pad_fill=0):
+    def _upload_padded(self, arr_np, cap, pad_fill=0, mesh=None,
+                       spec="local"):
         """THE upload tail shared by every resident-store seam: pad to
-        ``cap``, copy to the device, account upload phases. -> tensor."""
+        ``cap``, place by spec (a tensor on the device, or row-sharded /
+        replicated over the mesh, parallel.dist), account upload phases
+        and the Broadcast exchange. -> the tensor or placed buffer."""
         t0 = time.perf_counter()
         arr = arr_np
         if len(arr) != cap:
             arr = np.concatenate(
                 [arr, np.full(cap - len(arr), pad_fill,
                               dtype=arr.dtype)])
-        dev = upload(arr, self.device)
-        moved = dev.numel() * dev.element_size()
+        if mesh is None or spec == "local":
+            dev = upload(arr, self.device)
+            moved = dev.numel() * dev.element_size()
+        elif spec == "sharded":
+            from ..parallel import row_sharding
+            dev = row_sharding(mesh).place(arr)
+            moved = dev.numel() * dev.element_size()
+        else:
+            from ..parallel import replicated_sharding
+            dev = replicated_sharding(mesh).place(arr)
+            # bytes copied: one copy per distinct device; the exchange
+            # counts the mesh's copies, one per shard, as the
+            # reference's does
+            moved = dev.numel() * dev.element_size() * len(dev.copies)
+            _metrics.MPP_EXCHANGE.labels("broadcast").inc()
+            _metrics.MPP_EXCHANGE_BYTES.labels("broadcast").inc(
+                dev.numel() * dev.element_size() * mesh.size)
         phase.add("upload_s", time.perf_counter() - t0)
         phase.add("upload_bytes", moved)
         phase.inc("uploads")
@@ -192,10 +228,17 @@ class CoprExecutor:
         _memory.consume_current(moved)
         return dev
 
-    def _dev_put(self, key, arr_np, pad_fill=0, uid=None, version=None):
-        """Upload (padded) into the resident store; returns the device
-        tensor. uid/version feed eager invalidation (defaults: key[0] is
-        the table uid by every caller's key layout; version None means
+    def _dev_put(self, key, arr_np, pad_fill=0, uid=None, version=None,
+                 mesh=None, spec="local"):
+        """Upload (padded to key[-1]) into the resident store; returns
+        the device tensor, or with a mesh the placed buffer: spec
+        "sharded" partitions the rows over the mesh and stays
+        partitioned across statements (the reference's
+        _dev_put_sharded), "replicated" copies it to every device (its
+        _dev_put_replicated, the Broadcast exchange, counted on the
+        upload and not on a hit); the store charges by spec.
+        uid/version feed eager invalidation (defaults: key[0] is the
+        table uid by every caller's key layout; version None means
         LRU/uid-wide eviction only)."""
         hit = self._dev_store.get(key)
         if hit is not None:
@@ -203,14 +246,32 @@ class CoprExecutor:
             _metrics.DEV_BUFFER_POOL.labels("hit").inc()
             return hit
         _metrics.DEV_BUFFER_POOL.labels("miss").inc()
-        dev = self._upload_padded(arr_np, key[-1], pad_fill=pad_fill)
+        if mesh is None:
+            spec = "local"
+        dev = self._upload_padded(arr_np, key[-1], pad_fill=pad_fill,
+                                  mesh=mesh, spec=spec)
         self._dev_store.put(key, dev, dev.numel() * dev.element_size(),
                             uid=key[0] if uid is None else uid,
-                            version=version)
+                            version=version, spec=spec,
+                            ndev=1 if mesh is None else mesh.size)
         return dev
 
+    def _get_mesh(self):
+        """The copr's mesh, or None below two shards (the reference's
+        rule below two devices): every route then runs on one device."""
+        if self._mesh is None:
+            from ..parallel.mesh import mesh_of
+            spec = self.mesh_spec
+            if spec is None and self.device.type != "cuda":
+                self._mesh = False
+            else:
+                m = mesh_of(spec, self.device)
+                self._mesh = m if m.size >= 2 else False
+        return self._mesh or None
+
     # ---- public -------------------------------------------------------
-    def execute(self, dag, overlay=None, read_ts=None, ectx=None) -> list:
+    def execute(self, dag, overlay=None, read_ts=None, use_mpp=False,
+                mpp_min_rows=1 << 16, ectx=None) -> list:
         """-> list of host Chunks (schema = dag.cols, or partial agg layout:
         [group_keys..., group_nullflags..., agg_states...]).
 
@@ -236,8 +297,10 @@ class CoprExecutor:
                 with dom.tracer.span("copr",
                                      table=dag.table_info.name):
                     return self._execute_inner(dag, overlay, read_ts,
+                                               use_mpp, mpp_min_rows,
                                                ectx)
-            return self._execute_inner(dag, overlay, read_ts, ectx)
+            return self._execute_inner(dag, overlay, read_ts, use_mpp,
+                                       mpp_min_rows, ectx)
         finally:
             if tr is not None:
                 _memory.set_current(prev)
@@ -247,7 +310,8 @@ class CoprExecutor:
                 self.last_backend or "none").observe(
                 time.perf_counter() - t0)
 
-    def _execute_inner(self, dag, overlay, read_ts, ectx=None):
+    def _execute_inner(self, dag, overlay, read_ts, use_mpp=False,
+                       mpp_min_rows=1 << 16, ectx=None):
         if dag.table_info.id <= -1000:      # INFORMATION_SCHEMA virtual
             tbl = self._materialize_virtual(dag.table_info)
             read_ts = None
@@ -312,6 +376,13 @@ class CoprExecutor:
             self._bump("copr_host_exec")
             return self._execute_host(dag, tbl, arrays, valid, n, handles)
         _metrics.FRAGMENT_ROUTING.labels("device").inc()
+        if use_mpp and (dag.aggs or dag.group_items) and not overlay \
+                and not dag.host_filters and n >= mpp_min_rows:
+            res = self._execute_mpp(dag, tbl, arrays, valid, n, handles,
+                                    read_ts, ectx)
+            if res is not None:
+                self._bump("copr_mpp_exec")
+                return res
         self._bump("copr_device_exec")
         # device residency only for the table's own rows: an overlay's
         # merged arrays are this statement's alone
@@ -755,14 +826,16 @@ class CoprExecutor:
         return jcols, upload(vv, self.device)
 
     def _dev_put_append(self, key, arr_np, want, cap, uid, version,
-                        epoch, start, span, pad_fill=0):
+                        epoch, start, span, pad_fill=0, mesh=None,
+                        spec="local"):
         """Append-aware resident upload of an append-only table-column
         slice (docs/PERFORMANCE.md "Incremental HTAP"). ``arr_np``
         holds rows [start, start+want) of the column; the buffer pads
         to ``cap``. A live entry with enough rows is a pure hit; one
         that fell behind is TAIL-PATCHED on device (O(delta) upload)
         and advances its version in place; only a missing entry (or a
-        failed/oversized patch) pays the full upload."""
+        failed/oversized patch) pays the full upload. ``spec``/mesh
+        choose placement as in _dev_put; a patch keeps it."""
         store = self._dev_store
         ent = store.get_appendable(key)
         if ent is not None:
@@ -784,11 +857,127 @@ class CoprExecutor:
             store.drop(key, "delta_overflow")
             _metrics.DELTA_APPLY.labels("fell_back_full_upload").inc()
         _metrics.DEV_BUFFER_POOL.labels("miss").inc()
-        dev = self._upload_padded(arr_np, cap, pad_fill=pad_fill)
+        if mesh is None:
+            spec = "local"
+        dev = self._upload_padded(arr_np, cap, pad_fill=pad_fill,
+                                  mesh=mesh, spec=spec)
         store.put_appendable(key, dev, dev.numel() * dev.element_size(),
                              uid, version, rows=want, start=start,
-                             span=span, cap=cap, epoch=epoch)
+                             span=span, cap=cap, epoch=epoch, spec=spec,
+                             ndev=1 if mesh is None else mesh.size)
         return dev
+
+    # ---- MPP mesh route ------------------------------------------------
+    def _execute_mpp(self, dag, tbl, arrays, valid, n, handles, read_ts,
+                     ectx):
+        """Supervised mesh dispatch of a reader DAG's aggregation. ->
+        partials, or None when there is no mesh or the shape has no
+        dense layout (the caller runs its single-device route). On the
+        CPU a degraded mesh run also returns None, as the reference's
+        does; on the card it fails the statement."""
+        mesh = self._get_mesh()
+        if mesh is None:
+            return None
+        from ..errors import TiDBError
+        from ..utils import tracing as _tracing
+        t_mpp = time.perf_counter()
+        with _tracing.span("mpp_dispatch", table=dag.table_info.name,
+                           rows=n):
+            try:
+                res = device_guard.guarded_dispatch(
+                    lambda: self._try_execute_mpp(dag, tbl, arrays, valid,
+                                                  n, handles, mesh,
+                                                  read_ts),
+                    site="copr/mpp", ectx=ectx,
+                    domain=getattr(self, "domain", None),
+                    host_fallback=(lambda: None) if self.degrade_to_host
+                    else None, fallback_is_host=False)
+            except TiDBError:
+                raise                   # kill/quota: statement error
+            except Exception:           # noqa: BLE001
+                if not self.degrade_to_host:
+                    raise               # the card: the statement fails
+                res = None
+            if res is None:
+                _tracing.tag(degraded=1)
+        if res is not None:
+            _metrics.MPP_DISPATCH_SECONDS.observe(
+                time.perf_counter() - t_mpp)
+        return res
+
+    def _try_execute_mpp(self, dag, tbl, arrays, valid, n, handles, mesh,
+                         read_ts=None):
+        """MPP fragment path: rows sharded across the mesh, the dense
+        partial-agg body per shard, merged with psum (the hash exchange
+        collapsed into an allreduce over the dense key domain). Returns
+        None when ineligible.
+
+        Every input — column data AND the MVCC validity mask — rides the
+        sharded residency store, so a repeated statement over an
+        unchanged table uploads zero bytes to the mesh."""
+        cols = self._bind_cols(dag, tbl, arrays, slice(0, n), handles)
+        kd, sd = capture_agg_dicts(dag, cols)
+        strides = _dense_strides(dag, kd, cols, n)
+        if strides is None:
+            return None
+        if _segment_impl(self.device) == "runs" and \
+                _dense_nslots(strides) > _BCR_MAX:
+            # no scatter into a big dense domain while the lowering is
+            # runs: the single-device runs path takes it
+            return None
+        ndev = mesh.size
+        lane = 128 * ndev
+        # bucketed lane-multiple padding: the padded capacity — and with
+        # it the program shape and the buffer keys — survives appends
+        # within a bucket, so a write stream tail-patches the sharded
+        # buffers instead of re-keying them every `lane` rows
+        padded = ((shape_bucket(n) + lane - 1) // lane) * lane
+        local = padded // ndev
+        names = sorted(cols.keys())
+        # cache by STORAGE column id, never plan column idx
+        cid_of_idx = {sc.col.idx: self._cid(dag, sc) for sc in dag.cols}
+        from .delta import append_key
+        jc = {}
+        has_nulls = {}
+        epoch = tbl.gc_epoch
+        # keys carry the placement (the mesh's devices, so ndev too): a
+        # mesh entry never aliases a single-device or another mesh's one
+        mk = mesh.fingerprint()
+        for k in names:
+            data, nulls, _sdict = cols[k]
+            cid = cid_of_idx.get(k, -1)
+            kind = "h" if cid == -1 else "d"
+            jd = self._dev_put_append(
+                append_key(tbl.uid, "mppcol", cid, kind, epoch, (mk,),
+                           padded),
+                data, n, padded, tbl.uid, tbl.version, epoch, 0, None,
+                mesh=mesh, spec="sharded")
+            jn = None
+            has_nulls[k] = nulls is not None
+            if nulls is not None:
+                jn = self._dev_put_append(
+                    append_key(tbl.uid, "mppcol", cid, "n", epoch, (mk,),
+                               padded),
+                    nulls, n, padded, tbl.uid, tbl.version, epoch, 0,
+                    None, pad_fill=True, mesh=mesh, spec="sharded")
+            jc[k] = (jd, jn)
+        # the MVCC validity mask is (version, read_ts)-immutable: it
+        # stays resident too
+        vv = self._dev_put(
+            (tbl.uid, "mppvalid", tbl.version, read_ts, mk, padded),
+            valid[:n], pad_fill=False, uid=tbl.uid, version=tbl.version,
+            mesh=mesh, spec="sharded")
+        sdicts = {k: c[2] for k, c in cols.items()}
+        kern = self._fragment(
+            dag, tbl, "mpp", padded,
+            (tuple(strides), mk,
+             tuple(sorted(has_nulls.items()))),
+            lambda: _build_dense_agg_kernel_mpp(dag, sdicts, local,
+                                                strides, mesh))
+        res = run_fragment(kern, jc, vv)
+        from ..mpp.exec import exchange_observed, tree_nbytes
+        exchange_observed("passthrough", tree_nbytes(res))
+        return [_compact_dense(dag, res, strides, kd, sd)]
 
     def _cache_key(self, dag, tbl, kind, cap, extra=()):
         dict_vers = tuple(sorted(
@@ -819,6 +1008,62 @@ class PartialAggResult:
         self.states = states
         self.key_dicts = key_dicts or [None] * len(keys)
         self.state_dicts = state_dicts or [None] * len(states)
+
+
+def _psum_first(lvs, lcs, mesh):
+    """Exact cross-shard first_row merge: the value of the FIRST shard
+    (in mesh order) that has rows in each slot."""
+    from ..parallel.mesh import to_coordinator
+    lvs = to_coordinator(list(lvs), mesh)
+    lcs = to_coordinator(list(lcs), mesh)
+    acc = torch.zeros_like(lvs[0])
+    for lv, lc in zip(reversed(lvs), reversed(lcs)):
+        acc = torch.where(lc > 0, lv, acc)
+    return acc
+
+
+def psum_dense_result(results, aggs, mesh):
+    """Merge the shards' dense_agg_states outputs with one collective
+    per state array (the MPP hash exchange collapsed into psum): sums
+    and counts psum, min / max pmin / pmax (a shard's empty slot holds
+    the identity), first_row the first shard's value."""
+    from ..parallel.mesh import psum, pmax, pmin
+    out = []
+    for ai, a in enumerate(aggs):
+        sts = [r["states"][ai] for r in results]
+        cnt = psum([st[-1] for st in sts], mesh)
+        if a.name == "count":
+            out.append([cnt])
+        elif a.name in ("sum", "avg"):
+            out.append([psum([st[0] for st in sts], mesh), cnt])
+        elif a.name == "min":
+            out.append([pmin([st[0] for st in sts], mesh), cnt])
+        elif a.name == "max":
+            out.append([pmax([st[0] for st in sts], mesh), cnt])
+        elif a.name == "first_row":
+            out.append([_psum_first([st[0] for st in sts],
+                                    [st[1] for st in sts], mesh), cnt])
+        else:
+            raise NotImplementedError(a.name)
+    return {"present": psum([r["present"] for r in results], mesh),
+            "states": out}
+
+
+def _build_dense_agg_kernel_mpp(dag, sdicts, local_cap, sizes, mesh):
+    """The dense partial-agg fragment as one mesh program: each shard
+    aggregates its rows into the dense table (dense_agg_body, whose one-
+    and <= 64-slot layouts launch masked_sums and dense_group_sums), one
+    psum merges — the MPP hash exchange as an allreduce."""
+    from ..parallel.mesh import shard_map
+    groups, aggs = list(dag.group_items), list(dag.aggs)
+
+    def body_for(dev):
+        return _reader_fragment(
+            dag.filters, sdicts, local_cap, TorchNS(dev),
+            lambda ctx, mask: dense_agg_body(ctx, mask, groups, aggs,
+                                             sizes, local_cap))
+    return shard_map(mesh, body_for,
+                     lambda outs: psum_dense_result(outs, aggs, mesh))
 
 
 def run_fragment(kern, *args):

@@ -56,6 +56,7 @@ import numpy as np
 from ..chunk.device import shape_bucket, upload
 from ..utils import device_guard, env_int, phase
 from ..utils import metrics as _metrics
+from ..parallel.mesh import placed
 
 
 class _FoldItem:
@@ -77,9 +78,15 @@ class _FoldItem:
 
 def _fold(bufs, upds, offs):
     """The fold program: each buffer copied into a fresh tensor with its
-    padded tail delta slice-assigned at its offset (never in place)."""
+    padded tail delta slice-assigned at its offset (never in place). A
+    mesh entry (parallel/mesh.py Sharded / Replicated) is patched in
+    its own placement: the shards the tail reaches, or every copy
+    (reference copr/delta.py:_build_fold_kernel(out_shardings=...))."""
     out = []
     for b, u, o in zip(bufs, upds, offs):
+        if placed(b):
+            out.append(b.patched(u, o))
+            continue
         nb = b.clone()
         nb[o:o + u.shape[0]] = u
         out.append(nb)
@@ -379,7 +386,9 @@ class DeltaMaintainer:
         bufs = tuple(it.dev for it in items)
         # pinned, non-blocking on the card: a copy from pageable memory
         # would hold the host until the card is done with it
-        upds = tuple(upload(it.upd, it.dev.device) for it in items)
+        # (a mesh entry uploads its tail to each device it patches)
+        upds = tuple(it.upd if placed(it.dev) else
+                     upload(it.upd, it.dev.device) for it in items)
         offs = tuple(int(it.off) for it in items)
         return kern(bufs, upds, offs)
 

@@ -62,7 +62,20 @@ ported: ..." so the executor takes its counted host path: device ops
 outside TORCH_OPS. The reference's one-hot aggregation, its device top-N
 candidate selection and its early compaction of fact-filter survivors
 (ecap) are learned speed-ups that give the same rows and are not ported
-either. The MPP mesh path is not ported (one card).
+either.
+
+With a mesh (the planner's fragment_plan flagged the pipeline mpp, and
+the executor found tidb_enable_mpp on and two or more shards), the
+whole fact table runs as ONE mesh program (_run_fused_mpp): fact
+columns and the validity mask resident row-sharded over the mesh, dims
+replicated to every device (the Broadcast exchange, _upload_dim), the
+partition body above on each shard at the shard's rows, and the shards'
+dense tables merged by psum, or their sort-kind partials shipped to the
+coordinator in one fetch (PassThrough). A single inner dim over
+tidb_broadcast_join_threshold_count rows, grouped by one of its columns
+under sum / count / avg of fact expressions, takes the Hash exchange
+instead (_try_fused_shuffle -> mpp/exec.py mpp_shuffle_join_agg): both
+sides all_to_all'd by join key, joined and aggregated per shard, psum.
 """
 from __future__ import annotations
 
@@ -658,15 +671,18 @@ def _empty_dim_meta(dim, tbl):
             "synthetic": True}
 
 
-def _upload_dim(copr, dim, meta, cap, read_ts):
+def _upload_dim(copr, dim, meta, cap, read_ts, mesh=None):
     """Pad + upload dim arrays through the device-resident store; -> (the
     fragment's per-dim argument dict, {col idx: (has_nulls, sdict)}).
     The probe's scalars (lo, the composite pack layout) ride as python
-    ints, so a new key range reuses the fragment and uploads nothing."""
+    ints, so a new key range reuses the fragment and uploads nothing.
+    With a mesh every array replicates to all devices (the Broadcast
+    exchange of the dim fragment)."""
     tbl = meta["tbl"]
     n = meta["n"]
     ver = tbl.version
-    mk = tuple(meta.get("ukey", ()))
+    mk = (() if mesh is None else ("bcast", mesh.fingerprint())) + \
+        tuple(meta.get("ukey", ()))
     # plain dim column data is append-only table state: it rides the
     # delta-maintained append seam (copr/delta.py) when the meta wraps
     # a REAL columnar table — the fabricated empty-dim placeholder
@@ -688,7 +704,7 @@ def _upload_dim(copr, dim, meta, cap, read_ts):
                read_ts if ts_keyed and not ts_free else None,
                length) + mk + (acap,)
         return copr._dev_put(key, arr, pad_fill=fill, uid=tbl.uid,
-                             version=ver)
+                             version=ver, mesh=mesh, spec="replicated")
 
     def put_col(cid, kind, arr, acap, fill=0):
         # append seam for raw dim columns: the whole column [0, n)
@@ -697,8 +713,9 @@ def _upload_dim(copr, dim, meta, cap, read_ts):
         from .delta import append_key
         key = append_key(tbl.uid, ("dim",) + mk, cid, kind,
                          tbl.gc_epoch, (), acap)
-        return copr._dev_put_append(key, arr, n, acap, tbl.uid, ver,
-                                    tbl.gc_epoch, 0, None, pad_fill=fill)
+        return copr._dev_put_append(
+            key, arr, n, acap, tbl.uid, ver, tbl.gc_epoch, 0, None,
+            pad_fill=fill, mesh=mesh, spec="replicated")
 
     pre = bool(meta.get("pre"))
     args = {"cols": {}, "pack": meta.get("pack")}
@@ -1086,28 +1103,35 @@ def _delta_in_span(shim, sizes, delta_part):
     return True
 
 
-def fused_partials(copr, plan, read_ts, ctx=None, delta_rows=None,
+def fused_partials(copr, plan, read_ts, mesh=None,
+                   bcast_threshold=1 << 20, ctx=None, delta_rows=None,
                    dead_handles=None):
     """Execute a PhysFusedPipeline -> [PartialAggResult] (one per fact
-    partition), or None when the shape is not ported or not eligible at
-    run time (caller falls back to the conventional subtree)."""
+    partition; one per mesh shard for the mesh's sort layout), or None
+    when the shape is not ported or not eligible at run time (caller
+    falls back to the conventional subtree). With a mesh the whole
+    pipeline runs as one mesh program: fact sharded, dims broadcast,
+    aggregation allreduced (or a single big dim shuffled by key)."""
     # statement memory tracker for the upload seams (same install as
     # CoprExecutor.execute: the fused path uploads through _dev_put*
     # without passing through copr.execute)
     tr = getattr(ctx, "mem_tracker", None) if ctx is not None else None
     if tr is None:
-        return _fused_partials_inner(copr, plan, read_ts, ctx, delta_rows,
+        return _fused_partials_inner(copr, plan, read_ts, mesh,
+                                     bcast_threshold, ctx, delta_rows,
                                      dead_handles)
     prev = _memory.push_current(tr)
     try:
-        return _fused_partials_inner(copr, plan, read_ts, ctx, delta_rows,
+        return _fused_partials_inner(copr, plan, read_ts, mesh,
+                                     bcast_threshold, ctx, delta_rows,
                                      dead_handles)
     finally:
         _memory.set_current(prev)
 
 
-def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
-                          dead_handles=None):
+def _fused_partials_inner(copr, plan, read_ts, mesh=None,
+                          bcast_threshold=1 << 20, ctx=None,
+                          delta_rows=None, dead_handles=None):
     reason = _decline_reason(plan)
     if reason is not None:
         _set_reason(copr, reason)
@@ -1186,6 +1210,15 @@ def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
         fact_valid = fact_valid & ~np.isin(
             handles, np.asarray(dead_handles, dtype=np.int64))
 
+    if mesh is not None:
+        # a build side too large to replicate routes through the HASH
+        # exchange (all_to_all shuffle) instead of Broadcast
+        sh = _try_fused_shuffle(copr, plan, mesh, dim_metas, fact_tbl,
+                                fact_arrays, fact_valid, n, handles,
+                                bcast_threshold, ectx=ctx)
+        if sh is not None:
+            return sh
+
     # the delta partition builds BEFORE the dense sizes: its dict
     # encodes extend the shared dicts, so dict-derived dense sizes
     # (and dicts derived from them, captured again) cover delta codes
@@ -1233,7 +1266,7 @@ def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
     dim_args, dim_layouts, dim_caps, dim_ns, dim_sns = [], [], [], [], []
     for dim, meta in zip(plan.dims, dim_metas):
         dcap = shape_bucket(meta["n"])
-        da, layout = _upload_dim(copr, dim, meta, dcap, read_ts)
+        da, layout = _upload_dim(copr, dim, meta, dcap, read_ts, mesh)
         dim_args.append(da)
         dim_layouts.append(layout)
         dim_caps.append(dcap)
@@ -1255,6 +1288,12 @@ def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
     compk = ("fcompact", fact_tbl.gc_epoch) + gbkey
     group_bucket = max(1024, copr._host_cache.get(gbkey, 0))
     dom = getattr(copr, "domain", None)
+    if mesh is not None:
+        return _run_fused_mpp(
+            copr, plan, mesh, fact_tbl, fact_arrays, fact_valid, n,
+            handles, dim_args, dim_metas, dim_caps, dim_ns, dim_sns,
+            dim_layouts, dim_pres, fact_sdicts, pos_spec, sizes, shim, kd,
+            sd, gbkey, implk, compk, group_bucket, read_ts)
 
     def _partitions():
         for start in range(0, n, step):
@@ -1285,11 +1324,8 @@ def _fused_partials_inner(copr, plan, read_ts, ctx=None, delta_rows=None,
         elif sizes is not None:
             agg_kind, agg_param = "dense", tuple(sizes)
         else:
-            ccap = copr._host_cache.get(compk)
-            agg_kind, agg_param = "sort", (
-                group_bucket,
-                copr._host_cache.get(implk) or _segment_impl(copr.device),
-                None, ccap if isinstance(ccap, int) else None)
+            agg_kind = "sort"
+            agg_param = _sort_kind_param(copr, compk, implk, group_bucket)
 
         def build():
             return _make_pipeline_body(
@@ -1380,6 +1416,270 @@ def run_fragment(kern, fjc, fvv, dargs):
     fetch), which chip_smoke.py runs under
     torch.cuda.set_sync_debug_mode("error")."""
     return _de.run_fragment(kern, fjc, fvv, dargs)
+
+
+def _sort_kind_param(copr, compk, implk, group_bucket):
+    """The sort kind's parameters as learned so far: (group bucket,
+    lowering, top-N (not ported: None), compact capacity or None)."""
+    ccap = copr._host_cache.get(compk)
+    return (group_bucket,
+            copr._host_cache.get(implk) or _segment_impl(copr.device),
+            None, ccap if isinstance(ccap, int) else None)
+
+
+def _try_fused_shuffle(copr, plan, mesh, dim_metas, fact_tbl, fact_arrays,
+                       fact_valid, n, handles, threshold, ectx=None):
+    """Hash-exchange path (reference ExchangeType_Hash,
+    fragment.go:168): a single big inner dimension + group-by a dim
+    column + sum/count/avg over fact expressions -> both sides
+    all_to_all by join key, local merge join + dense agg, psum
+    (mpp/exec.py mpp_shuffle_join_agg). Returns [PartialAggResult] or
+    None when the shape doesn't match (caller broadcasts instead)."""
+    from ..mpp.exec import mpp_shuffle_join_agg
+    if len(plan.dims) != 1 or plan.post_filters:
+        return None
+    dim, meta = plan.dims[0], dim_metas[0]
+    if dim.join_type != "inner" or dim.extra_keys or \
+            dim.subplan is not None or meta["n"] <= threshold:
+        return None
+    if len(plan.group_items) != 1 or not isinstance(plan.group_items[0],
+                                                    ExprColumn):
+        return None
+    g = plan.group_items[0]
+    gcid = None
+    for sc in dim.dag.cols:
+        if sc.col.idx == g.idx:
+            gcid = _cid_of(dim.dag, sc)
+    if gcid is None or gcid == -1:
+        return None
+    nd = meta["n"]
+    pdata, pnulls, psdict = meta["arrays"][gcid]
+    if pnulls is not None and pnulls[:nd].any():
+        return None
+    if psdict is not None:
+        lo, size = 0, len(psdict.values) + 1
+    else:
+        if pdata.dtype.kind not in "iu" or nd == 0:
+            return None
+        lo = int(pdata[:nd].min())
+        size = int(pdata[:nd].max()) - lo + 1
+    if size > (1 << 18):
+        return None
+    fact_idxs = {sc.col.idx for sc in plan.fact_dag.cols}
+    vals = []
+    for a in plan.aggs:
+        if a.name not in ("sum", "count", "avg"):
+            return None
+        if a.args:
+            if not (_expr_idxs(a.args[0]) <= fact_idxs):
+                return None
+            vals.append(a.args[0])
+        else:
+            vals.append(None)
+    # host-side prep: masks + probe keys + agg args (numpy, vectorized)
+    key_cid = _cid_of(dim.dag, dim.build_key)
+    bk = meta["arrays"][key_cid][0][:nd].astype(np.int64)
+    dcols = {}
+    for sc in dim.dag.cols:
+        cid = _cid_of(dim.dag, sc)
+        if cid != -1:
+            data, nulls, sdict = meta["arrays"][cid]
+            dcols[sc.col.idx] = (data[:nd], nulls, sdict)
+    dctx = EvalCtx(np, nd, dcols, host=True)
+    dmask = meta["valid"][:nd].copy()
+    for f in dim.dag.filters:
+        dmask &= np.asarray(eval_bool_mask(dctx, f))
+    payload = pdata[:nd].astype(np.int64) - lo
+    fcols = copr._bind_cols(plan.fact_dag, fact_tbl, fact_arrays,
+                            slice(0, n), handles)
+    fctx = EvalCtx(np, n, fcols, host=True)
+    fmask = fact_valid[:n].copy()
+    for f in plan.fact_dag.filters:
+        fmask &= np.asarray(eval_bool_mask(fctx, f))
+    pk, pnl, _ = eval_expr(fctx, dim.probe_expr)
+    if np.isscalar(pk):
+        pk = np.full(n, pk)
+    pk = np.asarray(pk).astype(np.int64)
+    fmask &= ~np.asarray(materialize_nulls(fctx, pnl))
+    val_arrays = []
+    for v in vals:
+        if v is None:
+            val_arrays.append(np.ones(n, dtype=np.int64))
+        else:
+            d, nl, _ = eval_expr(fctx, v)
+            if np.isscalar(d):
+                d = np.full(n, d)
+            if np.asarray(materialize_nulls(fctx, nl)).any():
+                return None               # per-val null masks unsupported
+            val_arrays.append(np.asarray(d))
+    ndev = mesh.size
+    lane = 128 * ndev
+
+    def pad(arr, m, fill=0):
+        p = ((m + lane - 1) // lane) * lane
+        if p == m:
+            return arr
+        return np.concatenate([arr, np.full(p - m, fill, dtype=arr.dtype)])
+
+    cap_hint = 0
+    if ectx is not None:
+        try:
+            cap_hint = int(ectx.sv.get("tidb_tpu_mpp_shuffle_cap"))
+        except Exception:               # noqa: BLE001
+            pass
+    # capacity cache key: both tables' uid+version, the probe expression,
+    # BOTH sides' filters (a selective query's small learned cap must
+    # not leak to an unfiltered one) and the topology
+    cap_key = (fact_tbl.uid, fact_tbl.version, meta["tbl"].uid,
+               meta["tbl"].version, dim.probe_expr.fingerprint(),
+               tuple(f.fingerprint() for f in plan.fact_dag.filters),
+               tuple(f.fingerprint() for f in dim.dag.filters),
+               key_cid, mesh.fingerprint())
+    sums, cnts = mpp_shuffle_join_agg(
+        mesh, pad(pk, n), [pad(v, n) for v in val_arrays],
+        pad(fmask, n, False), pad(bk, nd), pad(payload, nd),
+        pad(dmask, nd, False), n_groups=size, ectx=ectx,
+        cap_key=cap_key, cap_hint=cap_hint)
+    slots = np.nonzero(cnts > 0)[0]
+    keys = [(slots + lo).astype(np.int64)]
+    states = []
+    for a, s in zip(plan.aggs, sums):
+        if a.name == "count":
+            states.append([cnts[slots]])
+        else:
+            states.append([s[slots], cnts[slots]])
+    if getattr(copr, "domain", None) is not None:
+        copr.domain.inc_metric("fused_shuffle_join")
+    return [PartialAggResult(
+        ngroups=len(slots), keys=keys,
+        key_nulls=[np.zeros(len(slots), dtype=bool)],
+        states=states, key_dicts=[psdict], state_dicts=[None] * len(states))]
+
+
+def _expr_idxs(e):
+    s = set()
+    e.collect_columns(s)
+    return s
+
+
+def _run_fused_mpp(copr, plan, mesh, fact_tbl, fact_arrays, fact_valid, n,
+                   handles, dim_args, dim_metas, dim_caps, dim_ns, dim_sns,
+                   dim_layouts, dim_pres, fact_sdicts, pos_spec, sizes,
+                   shim, kd, sd, gbkey, implk, compk, group_bucket,
+                   read_ts):
+    """Mesh execution: ONE mesh program over the whole fact table. Each
+    shard runs the partition body at its rows; dense layouts merge by
+    psum, the sort kind's per-shard partials reach the coordinator in
+    one fetch and learn its bucket, lowering and compact capacity from
+    the largest shard, as a partition does."""
+    from ..expression.torch_ns import TorchNS
+    from ..mpp.exec import exchange_observed, tree_nbytes
+    from ..parallel.mesh import shard_map, to_coordinator
+    from .delta import append_key
+    ndev = mesh.size
+    lane = 128 * ndev
+    # bucketed lane-multiple padding: the sharded fact buffers and the
+    # program shape survive appends within a bucket, so the delta
+    # maintainer tail-patches them instead of re-keying every `lane`
+    # rows (copr/delta.py)
+    padded = ((shape_bucket(n) + lane - 1) // lane) * lane
+    local = padded // ndev
+    cols = copr._bind_cols(plan.fact_dag, fact_tbl, fact_arrays,
+                           slice(0, n), handles)
+    fjc = {}
+    ver = fact_tbl.version
+    epoch = fact_tbl.gc_epoch
+    mk = mesh.fingerprint()         # the placement rides in every key
+    for sc in plan.fact_dag.cols:
+        cid = _cid_of(plan.fact_dag, sc)
+        data, nulls, _sd = cols[sc.col.idx]
+        jd = copr._dev_put_append(
+            append_key(fact_tbl.uid, "mppf", cid,
+                       "h" if cid == -1 else "d", epoch, (mk,), padded),
+            data, n, padded, fact_tbl.uid, ver, epoch, 0, None,
+            mesh=mesh, spec="sharded")
+        jn = None
+        if nulls is not None:
+            jn = copr._dev_put_append(
+                append_key(fact_tbl.uid, "mppf", cid, "n", epoch, (mk,),
+                           padded),
+                nulls, n, padded, fact_tbl.uid, ver, epoch, 0, None,
+                pad_fill=True, mesh=mesh, spec="sharded")
+        fjc[sc.col.idx] = (jd, jn)
+    # the fact validity mask is (version, read_ts)-immutable: resident
+    # like the sharded columns
+    fvv = copr._dev_put(
+        (fact_tbl.uid, "mppfv", ver, read_ts, mk, padded),
+        fact_valid[:n], pad_fill=False, uid=fact_tbl.uid, version=ver,
+        mesh=mesh, spec="sharded")
+    dom = getattr(copr, "domain", None)
+    aggs = list(plan.aggs)
+    while True:
+        if pos_spec is not None:
+            agg_kind = "posdense"
+            agg_param = (tuple(pos_spec[1]), pos_spec[2])
+        elif sizes is not None:
+            agg_kind, agg_param = "dense", tuple(sizes)
+        else:
+            agg_kind = "sort"
+            agg_param = _sort_kind_param(copr, compk, implk, group_bucket)
+        dense = agg_kind != "sort"
+
+        def build(kind=agg_kind, param=agg_param, dense=dense):
+            def body_for(dev):
+                return _make_pipeline_body(
+                    plan, local, fact_sdicts, tuple(dim_caps),
+                    tuple(dim_ns), tuple(dim_sns), tuple(dim_layouts),
+                    dim_pres, kind, param, TorchNS(dev))
+            if dense:
+                return shard_map(mesh, body_for, lambda outs:
+                                 _de.psum_dense_result(outs, aggs, mesh))
+            return shard_map(mesh, body_for,
+                             lambda outs: to_coordinator(outs, mesh))
+        if plan.dims:
+            kern = phase.timed_kernel("fused", build(), first=False)
+        else:
+            key = _fused_cache_key(plan, fact_tbl, local, agg_kind,
+                                   agg_param) + \
+                ("mpp", mk, padded)
+            kern = copr._kernel_cache.get(key)
+            if kern is None:
+                kern = copr._kernel_cache.put(key, build())
+        failpoint.inject("device_guard/fused/kernel")
+        res = run_fragment(kern, fjc, fvv, dim_args)
+        # PassThrough exchange: dense layouts merged by psum in the
+        # program; the sort kind ships per-shard partials in one fetch
+        exchange_observed("passthrough", tree_nbytes(res))
+        res = prefetch(res)
+        if agg_kind == "posdense":
+            return [_compact_pos_dense(res, pos_spec[0], pos_spec[1],
+                                       dim_metas, sd)]
+        if agg_kind == "dense":
+            return [_compact_dense(shim, res, sizes, kd, sd)]
+        ngs = [host_int(r["ngroups"]) for r in res]
+        if _compact_policy(copr, compk, agg_param[3],
+                           max(host_int(r["nvalid"]) for r in res),
+                           local) == "retry":
+            if dom is not None:
+                dom.inc_metric("fused_compact_regrow")
+            continue
+        rerun = _de.learn_sort_kind(copr._host_cache, gbkey, implk,
+                                    agg_param[1], agg_param[0], max(ngs),
+                                    local)
+        if rerun is not None:
+            group_bucket = max(group_bucket,
+                               copr._host_cache.get(gbkey, 0))
+            if dom is not None:
+                dom.inc_metric("fused_" + rerun)
+            continue
+        return [PartialAggResult(
+            ngroups=ng,
+            keys=[host_array(k)[:ng] for k in r["keys"]],
+            key_nulls=[host_array(kn)[:ng] for kn in r["key_nulls"]],
+            states=[[host_array(s)[:ng] for s in st]
+                    for st in r["states"]],
+            key_dicts=kd, state_dicts=sd)
+            for ng, r in zip(ngs, res) if ng > 0]
 
 
 def _fused_cache_key(plan, fact_tbl, cap, agg_kind, agg_param):

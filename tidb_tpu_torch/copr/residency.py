@@ -1,8 +1,8 @@
 """Device-resident columnar store: the device-memory buffer pool
-behind every upload seam (copr column slices, fused-pipeline columns).
-Entries are tensors on the domain's device, charged numel*element_size
-bytes by the caller. Single-device: the reference's mesh placements
-(sharded / replicated entries) are not ported.
+behind every upload seam (copr column slices, fused-pipeline columns,
+mesh shards). Entries are tensors on the domain's device, or placed
+buffers over its mesh (parallel/mesh.py), charged by the caller's
+nbytes under the placement policy below.
 
 Base-table column buffers are keyed by (table uid, ..., version, ...)
 so repeated analytic statements over an unchanged table upload ZERO
@@ -17,6 +17,22 @@ lacked:
   trickle would otherwise keep the pool full of unreachable buffers).
 * a per-table key index, so invalidation is O(buffers of that table),
   not O(pool).
+
+MESH entries: a mesh holds base tables partitioned over the row axis,
+so the pool speaks placement too. Every entry records a placement
+`spec` and the store owns the charging policy:
+
+  spec="sharded"     the buffer is split across the mesh — each shard
+                     holds 1/ndev of it, so the AGGREGATE device memory
+                     is the buffer's own bytes. Charged nbytes.
+  spec="replicated"  a Broadcast-exchange build side: every device
+                     holds a full copy. Charged nbytes * ndev.
+  spec="local"       single-device entry (the default). Charged nbytes.
+
+Invalidation is placement-blind: a DML commit drops the stale sharded,
+replicated and local entries of that uid alike (they all index under
+the uid), so a mesh and a single device share one invalidation
+contract.
 
 Padding is bucketed (chunk.device.shape_bucket) BEFORE keying: growth
 within a bucket re-uploads the changed data but reuses the cached
@@ -50,15 +66,20 @@ from __future__ import annotations
 from ..utils import metrics as _metrics
 from ..utils import lockrank
 
+SPECS = ("local", "sharded", "replicated")
+
+
 class DeviceResidentStore:
-    """LRU + version-indexed pool of device tensors, byte-budgeted."""
+    """LRU + version-indexed pool of device tensors, byte-budgeted,
+    placement(spec)-aware."""
 
     def __init__(self, budget_bytes: int):
         self.budget = budget_bytes
         self.bytes = 0
         self._mu = lockrank.ranked_lock("residency.device")
         self._entries: dict = {}       # key -> device array
-        self._sizes: dict = {}         # key -> charged bytes
+        self._sizes: dict = {}         # key -> charged bytes (the spec
+        #                                charging policy, see module doc)
         self._order: dict = {}         # key -> None; insertion order IS
         #                                LRU order (py3.7 dicts), so
         #                                touch/evict are O(1) — no list
@@ -66,6 +87,8 @@ class DeviceResidentStore:
         #                                per-column hot path
         self._uid_of: dict = {}        # key -> uid it was indexed under
         self._by_uid: dict = {}        # uid -> {key: version}
+        self._spec_of: dict = {}       # key -> placement spec
+        self._bytes_by_spec = {sp: 0 for sp in SPECS}
         # key -> [rows, start, span|None, cap, epoch] for
         # append-only table-column entries (delta maintenance,
         # copr/delta.py); version lives in _by_uid like every other
@@ -83,8 +106,9 @@ class DeviceResidentStore:
         # domain, a discarded test domain) must hand its charge back or
         # the gauge drifts upward forever
         try:
-            if self.bytes:
-                _metrics.DEV_RESIDENT_BYTES.labels("local").dec(self.bytes)
+            for sp, b in self._bytes_by_spec.items():
+                if b:
+                    _metrics.DEV_RESIDENT_BYTES.labels(sp).dec(b)
         except Exception:  # noqa: BLE001 — interpreter teardown
             pass
 
@@ -96,15 +120,26 @@ class DeviceResidentStore:
                 self._order[key] = None      # move to MRU end
             return hit
 
-    def put(self, key, dev, nbytes: int, uid=None, version=None):
-        """Insert a buffer charged ``nbytes``; evicts LRU entries past
-        the byte budget.
+    @staticmethod
+    def charged_bytes(nbytes: int, spec: str = "local",
+                      ndev: int = 1) -> int:
+        """THE charging policy: replicated entries cost a full copy per
+        device; sharded entries cost their own bytes in aggregate
+        device memory, exactly like a local entry on one device."""
+        if spec not in SPECS:
+            raise ValueError(f"unknown placement spec {spec!r}")
+        return nbytes * ndev if spec == "replicated" else nbytes
+
+    def put(self, key, dev, nbytes: int, uid=None, version=None,
+            spec: str = "local", ndev: int = 1):
+        """Insert a buffer; the store charges it by placement spec
+        (charged_bytes) and evicts LRU entries past the byte budget.
         uid/version feed the invalidation index — unversioned entries
         (version None) are dropped whenever their uid invalidates.
         -> True when inserted, False when the key already held a
         buffer (the existing one wins; callers that must know — e.g.
         put_appendable's metadata — check the return)."""
-        charged = nbytes
+        charged = self.charged_bytes(nbytes, spec, ndev)
         with self._mu:
             if key in self._entries:
                 return False
@@ -114,10 +149,12 @@ class DeviceResidentStore:
             self._sizes[key] = charged
             self._order[key] = None
             self.bytes += charged
+            self._spec_of[key] = spec
+            self._bytes_by_spec[spec] += charged
             # delta, not set(): several stores share the process-global
             # gauge (the CDC TableSink mirror runs a second Domain with
             # its own store) — last-writer-wins set() would flap
-            _metrics.DEV_RESIDENT_BYTES.labels("local").inc(charged)
+            _metrics.DEV_RESIDENT_BYTES.labels(spec).inc(charged)
             if uid is not None:
                 self._uid_of[key] = uid
                 self._by_uid.setdefault(uid, {})[key] = version
@@ -126,14 +163,16 @@ class DeviceResidentStore:
     # ---- append-only entries (delta maintenance) ----------------------
     def put_appendable(self, key, dev, nbytes: int, uid, version,
                        rows: int, start: int, span, cap: int,
-                       epoch: int = 0):
+                       epoch: int = 0, spec: str = "local",
+                       ndev: int = 1):
         """Insert an append-only table-column buffer. The buffer holds
         ``rows`` valid rows of the column slice [start, start+span)
         (span None = unbounded: the slice runs to the table tail),
         padded to ``cap``; rows beyond ``rows`` are padding the MVCC
         validity mask must gate off. The delta maintainer patches the
         tail and advances (rows, version) in place via apply_delta."""
-        if not self.put(key, dev, nbytes, uid=uid, version=version):
+        if not self.put(key, dev, nbytes, uid=uid, version=version,
+                        spec=spec, ndev=ndev):
             # a concurrent bind inserted first (its buffer is equally
             # correct); recording OUR rows against ITS buffer would
             # overclaim coverage
@@ -263,11 +302,17 @@ class DeviceResidentStore:
                 self._drop_locked(k, "version")
             return len(stale)
 
-    def stats(self) -> dict:
-        """Point-in-time accounting (information_schema / debugging
-        surface)."""
+    def spec_of(self, key):
+        """Recorded placement spec of a live entry, else None."""
         with self._mu:
-            return {"entries": len(self._entries), "bytes": self.bytes}
+            return self._spec_of.get(key)
+
+    def stats(self) -> dict:
+        """Point-in-time accounting: total charged bytes and the
+        per-placement split (information_schema / debugging surface)."""
+        with self._mu:
+            return {"entries": len(self._entries), "bytes": self.bytes,
+                    "bytes_by_spec": dict(self._bytes_by_spec)}
 
     def _drop_locked(self, key, cause: str):
         self._entries.pop(key, None)
@@ -275,7 +320,9 @@ class DeviceResidentStore:
         freed = self._sizes.pop(key, 0)
         self.bytes -= freed
         self._order.pop(key, None)
-        _metrics.DEV_RESIDENT_BYTES.labels("local").dec(freed)
+        spec = self._spec_of.pop(key, "local")
+        self._bytes_by_spec[spec] -= freed
+        _metrics.DEV_RESIDENT_BYTES.labels(spec).dec(freed)
         # unindex under the uid put() recorded, NOT key[0] — a caller
         # may index under an explicit uid, and a mismatch here would
         # leave a dangling _by_uid row that inflates invalidate counts

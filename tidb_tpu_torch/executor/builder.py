@@ -36,6 +36,16 @@ def _build(ctx, plan):
     if isinstance(plan, PhysFusedPipeline):
         from .executors import FusedPipelineExec
         return FusedPipelineExec(ctx, plan)
+    from ..mpp.fragment import PhysExchangeReceiver, PhysExchangeSender
+    if isinstance(plan, PhysExchangeReceiver):
+        # the sender is a display-level fragment boundary; the receiver
+        # drives the fragment body directly (in one process the
+        # exchange is a placement or a collective, not a stream)
+        from .executors import ExchangeReceiverExec
+        inner = plan.child
+        if isinstance(inner, PhysExchangeSender):
+            inner = inner.child
+        return ExchangeReceiverExec(ctx, plan, build_executor(ctx, inner))
     if isinstance(plan, PhysSelection):
         return SelectionExec(ctx, plan, build_executor(ctx, plan.child))
     if isinstance(plan, PhysProjection):

@@ -154,13 +154,37 @@ class TableReaderExec(Executor):
         return ch
 
     def partials(self):
-        # single device: the reference's MPP mesh path (use_mpp,
-        # tidb_enable_mpp) is not ported
+        sv = self.ctx.sv
         out = []
         for dag in self._part_dags():
+            fm = getattr(self.ctx, "force_mpp", None)
             out.extend(self._copr_exec(
-                dag, self._overlay(dag), self.ctx.read_ts()))
+                dag, self._overlay(dag), self.ctx.read_ts(),
+                use_mpp=bool(sv.get("tidb_enable_mpp")) if fm is None
+                else fm,
+                mpp_min_rows=0 if fm
+                else int(sv.get("tidb_mpp_min_rows"))))
         return out
+
+
+class ExchangeReceiverExec(Executor):
+    """Consumer side of a fragment boundary: forwards to the fragment
+    body, which executes on the mesh when one exists (partial results
+    returned over the PassThrough exchange) and on one device
+    otherwise."""
+
+    def __init__(self, ctx, plan, inner):
+        super().__init__(ctx, plan.schema, [inner])
+        self.plan = plan
+
+    def open(self):
+        self.children[0].open()
+
+    def next(self):
+        return self.children[0].next()
+
+    def partials(self):
+        return self.children[0].partials()
 
 
 class FusedPipelineExec(Executor):
@@ -286,25 +310,60 @@ class FusedPipelineExec(Executor):
             from ..copr.pipeline import fused_partials
             from ..utils import device_guard
             to_host = self.ctx.copr.degrade_to_host
+            mesh = None
+            if getattr(self.plan, "mpp", False) and drows is None:
+                # the delta overlay runs on one device: the extra
+                # partition is tiny and not worth a mesh program
+                fm = getattr(self.ctx, "force_mpp", None)
+                want = bool(self.ctx.sv.get("tidb_enable_mpp")) \
+                    if fm is None else fm
+                min_rows = 0 if fm else int(
+                    self.ctx.sv.get("tidb_mpp_min_rows"))
+                fact = sess.domain.columnar.tables.get(
+                    self.plan.fact_dag.table_info.id)
+                if want and fact is not None and fact.n >= min_rows:
+                    mesh = self.ctx.copr._get_mesh()
+            bt = int(self.ctx.sv.get("tidb_broadcast_join_threshold_count"))
+
+            def _run_fused(m):
+                return fused_partials(
+                    self.ctx.copr, self.plan, self.ctx.read_ts(), m,
+                    bcast_threshold=bt, ctx=self.ctx,
+                    delta_rows=drows[0] if drows else None,
+                    dead_handles=drows[1] if drows else None)
+
             try:
                 # supervised dispatch (classified retry/backoff +
-                # watchdog); one device: the reference's mesh retry
-                # ladder (site fused/mpp) is not ported
-                res = device_guard.guarded_dispatch(
-                    lambda: fused_partials(
-                        self.ctx.copr, self.plan, self.ctx.read_ts(),
-                        ctx=self.ctx,
-                        delta_rows=drows[0] if drows else None,
-                        dead_handles=drows[1] if drows else None),
-                    site="fused", ectx=self.ctx, fallback_is_host=to_host)
+                # watchdog). On the CPU a degraded mesh run retries on
+                # one device before falling back to the host join, as
+                # the reference does; on the card it fails the
+                # statement
+                used_mesh = mesh is not None
+                try:
+                    res = device_guard.guarded_dispatch(
+                        lambda: _run_fused(mesh),
+                        site="fused/mpp" if used_mesh else "fused",
+                        ectx=self.ctx,
+                        fallback_is_host=to_host and not used_mesh)
+                except device_guard.DeviceDegradedError:
+                    if not (used_mesh and to_host):
+                        raise
+                    used_mesh = False
+                    res = device_guard.guarded_dispatch(
+                        lambda: _run_fused(None), site="fused",
+                        ectx=self.ctx, fallback_is_host=to_host)
                 if res is not None:
                     from ..utils import metrics as _mtr
-                    _mtr.FUSED_PIPELINE.labels("hit").inc()
-                    sess.domain.inc_metric("fused_pipeline_hit")
+                    _mtr.FUSED_PIPELINE.labels(
+                        "mpp_hit" if used_mesh else "hit").inc()
+                    sess.domain.inc_metric(
+                        "fused_pipeline_mpp_hit" if used_mesh
+                        else "fused_pipeline_hit")
                     if drows is not None:
                         sess.domain.inc_metric(
                             "fused_pipeline_dirty_overlay")
-                    self.backend = "device(fused)"
+                    self.backend = ("device(fused-mpp)" if used_mesh
+                                    else "device(fused)")
                     sess.domain.last_fused_reason = None
                     return res
             except device_guard.DeviceDegradedError as exc:

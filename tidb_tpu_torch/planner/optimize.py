@@ -108,9 +108,11 @@ def optimize(stmt, pctx: PlanContext):
             mpp_on = bool(pctx.sess_vars.get("tidb_enable_mpp"))
         except Exception:
             mpp_on = False
-        # MPP fragments are not yet ported: one card runs the
-        # single-device plan, as the reference does below two devices
-        del mpp_on
+        if mpp_on:
+            # exchange boundaries on any device count: without a mesh
+            # every receiver runs its child's single-device path
+            from ..mpp.fragment import fragment_plan
+            phys = fragment_plan(phys)
         from .physical import attach_fused_topn
         phys = attach_fused_topn(phys)
         phys.read_tables = frozenset(pctx.read_tables)

@@ -105,7 +105,7 @@ class GlobalMemoryController:
 
 class Domain:
     def __init__(self, data_dir: str | None = None,
-                 wal_sync: bool = False, device=None):
+                 wal_sync: bool = False, device=None, mesh=None):
         import time as _time
         self._start_time = _time.time()
         self.data_dir = data_dir
@@ -117,7 +117,10 @@ class Domain:
         self.columnar = ColumnarEngine(self.storage, self._table_info_by_id)
         from ..utils.torchcfg import resolve_device
         self.device = resolve_device(device)
-        self.copr = CoprExecutor(self.columnar, device=self.device)
+        # mesh: the MPP mesh (parallel.Mesh, or an int: that many shards
+        # on `device`); None is every visible CUDA device
+        self.copr = CoprExecutor(self.columnar, device=self.device,
+                                 mesh=mesh)
         self.copr.domain = self   # virtual-table reads need domain state
         self._allocators: dict[int, _Allocator] = {}
         self.global_vars: dict[str, object] = {}

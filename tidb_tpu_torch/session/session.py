@@ -2123,12 +2123,13 @@ def bootstrap(domain: Domain) -> None:
 
 
 def new_store(data_dir: str | None = None,
-              wal_sync: bool = False, device=None) -> Domain:
+              wal_sync: bool = False, device=None, mesh=None) -> Domain:
     """Create a bootstrapped in-process store (reference
     testkit.CreateMockStore). With data_dir, commits persist to a WAL and
     replay on reopen; wal_sync=True fsyncs every commit frame. device:
     the torch device of the coprocessor (default "cuda"; raises when
-    there is none)."""
-    domain = Domain(data_dir, wal_sync=wal_sync, device=device)
+    there is none). mesh: the MPP mesh (parallel.Mesh, or an int: that
+    many shards on `device`; default every visible CUDA device)."""
+    domain = Domain(data_dir, wal_sync=wal_sync, device=device, mesh=mesh)
     bootstrap(domain)
     return domain

@@ -9,10 +9,13 @@ from .session import Session, Domain, new_store
 class TestKit:
     __test__ = False          # not a pytest test class
 
-    def __init__(self, domain: Domain | None = None, device=None):
+    def __init__(self, domain: Domain | None = None, device=None,
+                 mesh=None):
         """device: the coprocessor's torch device for a new store
-        (default "cuda"; raises when there is none)."""
-        self.domain = domain or new_store(device=device)
+        (default "cuda"; raises when there is none). mesh: its MPP mesh
+        (a parallel.Mesh, or an int: that many shards on the device —
+        the counterpart of the reference's virtual device count)."""
+        self.domain = domain or new_store(device=device, mesh=mesh)
         self.sess = Session(self.domain)
         self.sess.vars.current_db = "test"
         # write-time row<->index self-check in testing builds (reference

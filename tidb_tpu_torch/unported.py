@@ -1,8 +1,10 @@
 """Surfaces of tidb_tpu that this package does not carry yet.
 
-The reference wires the read-replica fabric, MPP mesh fragments, the
-cluster transport and BR at query time. Until each is ported, a statement that needs one fails with
-the error below instead of reaching for the reference package."""
+The reference wires the cluster transport (its multi-process mesh, the
+owner's remote lease store) at query time; the read-replica fabric, BR
+and the single-process MPP mesh are ported. Until the transport is, a
+statement that needs it fails with the error below instead of reaching
+for the reference package."""
 from __future__ import annotations
 
 from .errors import UnsupportedError
