@@ -14,7 +14,7 @@ table) against their host twin, then the executor's device hooks (ORDER
 BYs over customer and orders, window functions over all of orders,
 row-returning inner, left, semi and anti hash joins between them) against
 their host twin and the reference's committed digests, then vector
-search over 1,000,000 x VECTOR(128) (sift-128-euclidean's shape, a
+search over 500,000 x VECTOR(128) (sift-128-euclidean's shape, a
 seeded mixture of Gaussians loaded by IMPORT INTO's bulk path: exact
 top-10 in three metrics, ties across the 10th row and NULL vectors, a
 hybrid search at 1 % selectivity, an IVF index trained on the card with
@@ -30,7 +30,14 @@ psum, a fused join whose orders dim is over the broadcast threshold and
 a 90 %-hot-key join of generated tables through the all_to_all shuffle,
 EXPLAIN of Q3 == the reference's exchange tree; each held to the
 committed rows or the host twin, its route and exchange counted, warm
-within 2 dispatches, 1 sync and no upload), and Q6, Q1, the global
+within 2 dispatches, 1 sync and no upload), then the cluster (three
+worker processes on the card in one gloo process group, SF1 lineitem
+dealt to them and loaded by IMPORT INTO: spmd_agg of Q6's shape, of a
+filter that takes masked_sums and of a grouped statement, query_agg of
+Q1 and Q6, the spmd_shuffle of lineitem x orders, TSO, a 2PC over RPC
+and kill -9 of a worker under replication; every rank on the card,
+spmd_frag one sync, a warm partial one sync per partition, each scan
+kernel launched on every rank), and Q6, Q1, the global
 aggregate, Q3 and Q5 again through the package's MySQL wire server,
 with a raw-socket client. Then the phases that write (HTAP serving):
 BACKUP DATABASE of the SF1 tables with a logbackup:// changefeed armed;
@@ -55,7 +62,8 @@ a blocking wait on the card inside a fragment or a hook fails the run; a
 hook statement makes exactly its hooks' fetches as syncs. Each kernel is
 held to its plain version on inputs built from the loaded tables and on
 edge cases, and, in one more warm statement of every TestKit query that
-launches it, on the very tensors each fragment hands its wrapper. Each
+launches it (and one more run of every cluster case, in the worker
+processes), on the very tensors each fragment hands its wrapper. Each
 kernel's launches are counted per path, and so are the product pairs Q6
 folds into range_filter_sums (one per partition and statement).
 
@@ -65,10 +73,14 @@ result, when either is missing or any phase fails. The last lines of
 its output are a `{"htap_serving": {...}}` JSON line (the write
 phases' figures), a `{"mpp_mesh": {...}}` JSON line (the mesh
 statements' warm ms beside their single-card or host-twin ms, exchange
-bytes, peak device memory), a `{"programs": [...]}` JSON line (the vector and
+bytes, peak device memory), a `{"cluster": {...}}` JSON line (the
+cluster's warm ms per case, per-rank counters, launches and peak
+device memory, the backend), a `{"programs": [...]}` JSON line (the vector and
 inference programs' device ms beside their bounds), the card's name and
 power limit, a `{"kernels": [...]}` JSON line (each kernel's launches
-by path, the mesh's under "mpp") and
+by path, the mesh's under "mpp", the cluster's per rank under
+"cluster_by_rank" and how many of its calls the workers held to the
+plain version under "cluster_held") and
 `{"ok": true, "device": {...}}`."""
 from __future__ import annotations
 
@@ -1313,7 +1325,9 @@ def phase_executor(tk, exp, guard, card=""):
 # rows of 128 float dimensions) as a seeded mixture of Gaussians, as
 # scripts/vector_smoke.py makes its own: centers * 4, noise 0.35, about
 # 244 rows per center (vector_smoke: 195), 4 decimals of text per value.
-VEC_ROWS, VEC_DIM, VEC_CENTERS, VEC_BLOCK = 1_000_000, 128, 4096, 1 << 16
+# 10^6 rows cut to 500,000 (PERF.md section 4: the whole run passed 900 s
+# with the cluster phase), about 122 rows per center.
+VEC_ROWS, VEC_DIM, VEC_CENTERS, VEC_BLOCK = 500_000, 128, 4096, 1 << 16
 VEC_EDGE_ROWS, VEC_DUPS, VEC_NULLS = 1 << 16, 30, 3
 VEC_K, VEC_QUERIES, VEC_INSERTS = 10, 20, 5
 VEC_RECALL = 0.95
@@ -2121,6 +2135,7 @@ def phase_mpp(tk, exp, guard, single_meds):
             if want is None:
                 want_rows, twin_ms = host_twin(tk, sql)
                 out["single_ms"][name] = twin_ms
+                out.setdefault("twin_rows", {})[name] = want_rows
             warm, calls = [], []
             for i in range(2 + WARM_RUNS):
                 checked = i == 1 + WARM_RUNS
@@ -2389,8 +2404,9 @@ RF_BATCH = 500
 # dense_group_sums' 64 slots (a 64th key takes the sort kind on the
 # card); 1,000,000 rows cut to REPLICA_ROWS, a multiple of the loader's
 # 1,000-row blocks (PERF.md section 4: a mirror's catch-up applies rows
-# one by one on the host)
-REPLICA_ROWS = 62_000
+# one by one on the host; halved again when the whole run passed 900 s
+# with the cluster phase)
+REPLICA_ROWS = 31_000
 REPLICA_SLA_MS = 5000
 REPLICA_GROUP = "select k, count(*), sum(v) from lines group by k order by k"
 REPLICA_LIKE = "select count(*), sum(v) from lines where s like 'a%'"
@@ -3248,6 +3264,646 @@ def phase_br_restore(tk, br, exp, htap, card, device=None):
                 "backup_bytes": br["backup_bytes"], "rows": br["rows"]})
     return out
 
+CLUSTER_WORKERS = 3
+CLUSTER_BLOCK = 250_000
+CLUSTER_Q6 = ("select sum(l_extendedprice * l_discount), count(*) from "
+              "lineitem where l_shipdate >= date '1994-01-01' and "
+              "l_shipdate < date '1995-01-01' and l_discount between 0.05 "
+              "and 0.07 and l_quantity < 24")
+CLUSTER_MASKED = ("select sum(l_quantity), count(*) from lineitem where "
+                  "l_commitdate < l_receiptdate")
+CLUSTER_GROUPED = ("select l_linenumber, sum(l_quantity), count(*) from "
+                   "lineitem group by l_linenumber")
+CLUSTER_GROUPS = 8
+CLUSTER_KILL_ROWS = 600
+CLUSTER_SHUFFLE_RUNS = 3
+# a worker's Domain counters that a degrade, a retry or a host route moves
+CLUSTER_BAD = ("device_dispatch_error", "device_retry", "device_fallback",
+               "device_breaker_short_circuit", "copr_host_exec",
+               "fused_pipeline_fallback", "fused_pipeline_error")
+
+
+# a cluster worker as this script starts it: the port's worker
+# (cluster/worker.py serve_worker) with each scan_kernels wrapper
+# replaced by one that, while the switch is on, also runs the kernel's
+# plain version on the same device tensors and, once the request's work
+# is done (not inside it), compares the two: the reply's meta gains
+# "kernel_check" {kernel: [calls, max abs err, equal]}. The worker op
+# {"op": "kernel_check", "on": bool} flips the switch. The plain runs
+# launch no kernel and count nothing. argv: PORT [--cpu]
+CLUSTER_WORKER = r"""
+import sys
+import torch
+from tidb_tpu_torch.cluster import worker as wk
+from tidb_tpu_torch.ops import scan_kernels as sk
+
+check = {"on": False, "pairs": None}
+
+
+def checking(name, wrapper):
+    plain = getattr(sk, name + "_plain")
+
+    def call(*args, **kw):
+        got = wrapper(*args, **kw)
+        if check["pairs"] is not None:
+            check["pairs"].append((name, got, plain(*args, **kw)))
+        return got
+    return call
+
+
+for fn in sk.KERNELS:
+    setattr(sk, fn.__name__, checking(fn.__name__, fn))
+counted, handle = wk._counted, wk.WorkerServer._handle
+
+
+def checked_counted(domain, fn):
+    if not check["on"]:
+        return counted(domain, fn)
+    check["pairs"] = []
+    try:
+        out, meta = counted(domain, fn)
+    finally:
+        pairs, check["pairs"] = check["pairs"], None
+    res = {}
+    for name, got, want in pairs:
+        r = res.setdefault(name, [0, 0, True])
+        r[0] += 1
+        for g, w in zip(got, want):
+            if g.shape != w.shape or not torch.equal(g, w):
+                r[2] = False
+            if g.shape == w.shape and g.numel():
+                r[1] = max(r[1], (g - w).abs().max().item())
+    meta["kernel_check"] = res
+    return out, meta
+
+
+def checked_handle(self, op, msg, arrays):
+    if op == "kernel_check":
+        check["on"] = bool(msg["on"])
+        return {"ok": True}, {}
+    return handle(self, op, msg, arrays)
+
+
+wk._counted = checked_counted
+wk.WorkerServer._handle = checked_handle
+wk.serve_worker(int(sys.argv[1]),
+                device="cpu" if "--cpu" in sys.argv[2:] else None)
+"""
+
+
+def tbl_text(block):
+    """Rows of lineitem as .tbl text (fields joined by '|', one row a
+    line): `block` is [(kind, data, extra)] per column in table order,
+    kind "int", "dec" (scaled int64, extra = scale), "date" (days since
+    the epoch) or "dict" (int32 codes, extra = the values)."""
+    import numpy as np
+    fields = []
+    for kind, data, extra in block:
+        if kind == "int":
+            s = data.astype(str).tolist()
+        elif kind == "dec":
+            a = np.abs(data)
+            s = [f"{sign}{q}.{r}" for sign, q, r in zip(
+                np.where(data < 0, "-", "").tolist(),
+                (a // 10 ** extra).tolist(),
+                np.char.zfill((a % 10 ** extra).astype(str), extra).tolist())]
+        elif kind == "date":
+            s = (np.datetime64("1970-01-01", "D") +
+                 data.astype("timedelta64[D]")).astype(str).tolist()
+        else:
+            s = np.asarray(extra, dtype=object)[data].tolist()
+        fields.append(s)
+    return "".join(f"{'|'.join(row)}\n" for row in zip(*fields))
+
+
+def cluster_shards(tk, tmp, nshards):
+    """lineitem of the main TestKit dealt by row to `nshards` .tbl files
+    (row i to shard i % nshards, as the reference's load_shard deals),
+    the text made by one process per core. -> (paths, rows per shard)."""
+    import multiprocessing
+    from tidb_tpu_torch.types.field_type import TypeClass
+    dom = tk.domain
+    tbl = dom.infoschema().table_by_name("test", "lineitem")
+    ctab = dom.columnar.tables[tbl.id]
+    cols = []
+    for ci in tbl.columns:
+        data = ctab.data[ci.id][:ctab.n]
+        d = ctab.dicts.get(ci.id)
+        if d is not None:
+            cols.append(("dict", data, list(d.values)))
+        elif ci.ft.tclass == TypeClass.DECIMAL:
+            cols.append(("dec", data, max(ci.ft.decimal, 0)))
+        elif ci.ft.tclass == TypeClass.DATE:
+            cols.append(("date", data, None))
+        else:
+            cols.append(("int", data, None))
+    jobs, owner = [], []
+    for s in range(nshards):
+        n = len(cols[0][1][s::nshards])
+        for lo in range(0, n, CLUSTER_BLOCK):
+            jobs.append([(k, d[s::nshards][lo:lo + CLUSTER_BLOCK], x)
+                         for k, d, x in cols])
+            owner.append(s)
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(max(1, min(os.cpu_count() or 1, 16))) as pool:
+        texts = pool.map(tbl_text, jobs)
+    paths = []
+    for s in range(nshards):
+        path = os.path.join(tmp, f"lineitem.{s}.tbl")
+        with open(path, "w") as f:
+            for o, t in zip(owner, texts):
+                if o == s:
+                    f.write(t)
+        paths.append(path)
+    return paths, [len(cols[0][1][s::nshards]) for s in range(nshards)]
+
+
+class WorkerProcs:
+    """The cluster's worker processes: the port's worker on a free port
+    (`python -m tidb_tpu_torch.cluster.worker 0`, with --cpu off the
+    card) started through CLUSTER_WORKER, each one's stderr in a file of
+    `logdir`. spawn() is Cluster's spawn_worker; stop() ends every
+    process still running."""
+
+    def __init__(self, logdir, device=None):
+        self.logdir = logdir
+        self.device = device
+        self.procs = []
+        self.ports = {}
+
+    def start(self):
+        args = [sys.executable, "-c", CLUSTER_WORKER, "0"]
+        if self.device == "cpu":
+            args.append("--cpu")
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep +
+                   os.environ.get("PYTHONPATH", ""))
+        err = open(os.path.join(self.logdir,
+                                f"worker{len(self.procs)}.log"), "w")
+        p = subprocess.Popen(args, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=err, text=True)
+        err.close()
+        self.procs.append(p)
+        return p
+
+    def ready(self, p):
+        line = p.stdout.readline().strip()
+        if not line.startswith("WORKER_READY"):
+            i = self.procs.index(p)
+            with open(os.path.join(self.logdir, f"worker{i}.log")) as f:
+                tail = f.read()[-2000:]
+            fail(f"cluster: worker {i} did not start: {line!r}\n{tail}")
+        port = int(line.split()[1])
+        self.ports[port] = p
+        return port
+
+    def spawn(self):
+        return self.ready(self.start())
+
+    def stop(self):
+        for p in self.procs:
+            if p.poll() is None:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=30)
+
+
+def record_replies(cl, replies):
+    """Wrap each worker client's call so every reply's meta lands in
+    `replies` as (port, op, meta) — the per-rank launches, syncs and
+    counters of the worker ops (cluster/worker.py _counted)."""
+    def wrap(w):
+        if getattr(w, "_recorded", False):
+            return
+        call = w.call
+
+        def recorded(msg, arrays=None, **kw):
+            out, arrs = call(msg, arrays, **kw)
+            replies.append((w.port, msg.get("op"), out))
+            return out, arrs
+        w.call = recorded
+        w._recorded = True
+    for w in cl.workers:
+        wrap(w)
+    client = cl._client
+
+    def new_client(port):
+        w = client(port)
+        wrap(w)
+        return w
+    cl._client = new_client
+
+
+def check_rank_meta(label, metas, want_syncs=None, on_card=True):
+    """Gates on the meta of one fan-out's replies: every rank on the card,
+    no degrade or host route, `want_syncs` syncs where given (None: syncs
+    == dispatches, one per partition; False: not checked)."""
+    for port, meta in metas:
+        if on_card and not str(meta.get("device", "")).startswith("cuda"):
+            fail(f"cluster {label}: worker {port} ran on {meta.get('device')}")
+        bad = {k: v for k, v in meta.get("metrics", {}).items()
+               if k in CLUSTER_BAD and v}
+        ph = meta.get("phase", {})
+        if bad or ph.get("device_fallbacks", 0):
+            fail(f"cluster {label}: worker {port} degraded: {bad} {ph}")
+        syncs = ph.get("syncs", 0)
+        want = ph.get("dispatches", 0) if want_syncs is None else want_syncs
+        if on_card and want_syncs is not False and (syncs != want or
+                        (want_syncs is None and not want)):
+            fail(f"cluster {label}: worker {port} {syncs} syncs, expected "
+                 f"{want} ({phase_line(ph)})")
+
+
+def held_to_plain(label, replies, held):
+    """Gates on the replies of a run made with the workers' kernel_check
+    on (CLUSTER_WORKER): on every rank each launch of a scan kernel was
+    held to its plain version on the same tensors, and equal. Folds the
+    differences into ERR and the compared calls into `held`."""
+    for port, _op, meta in replies:
+        if "launches" not in meta:
+            continue
+        kc = meta.get("kernel_check")
+        if kc is None:
+            fail(f"cluster {label}: worker {port} made no kernel check")
+        for name in KERNELS:
+            calls, err, equal = kc.get(name, (0, 0, True))
+            if calls < meta["launches"].get(name, 0) or not equal:
+                fail(f"cluster {label}: worker {port} {name}: "
+                     f"{meta['launches'].get(name, 0)} launches, {calls} "
+                     f"held to the plain version, equal {equal}, max abs "
+                     f"err {err}")
+            ERR[name] = max(ERR[name], err)
+            held[name] += calls
+
+
+def phase_cluster(tk, exp, card, shuffle_rows, device=None):
+    """The cluster over torch.distributed: CLUSTER_WORKERS worker
+    processes (the cards' shards of TiDB's MPP deployment, one task per
+    store; here all on one card) join one gloo group, each holding its
+    deal of SF1 lineitem loaded by IMPORT INTO from a .tbl file, with the
+    coordinator in this process. Cases: spmd_agg of Q6's shape (==
+    q6_oracle in scaled integers), a masked and a grouped spmd_agg (==
+    numpy), query_agg of Q1 and Q6 (== the committed SF1 rows), the
+    spmd_shuffle of lineitem x orders with o_orderpriority's code as
+    payload (== phase_mpp's answer for MPP_SHUFFLE), then TSO, a 2PC
+    over RPC and kill -9 of a worker under replication (the fragment
+    query completes on the replacement's card, no acked write lost).
+    Per rank: every reply on the card, no degrade, spmd_frag 1 sync, a
+    warm partial 1 sync per partition, each scan kernel launched, and in
+    one more run of each case (and of the recovered query) every launch
+    held to its kernel's plain version (held_to_plain).
+    -> the phase's figures (warm medians, bytes, per-rank launches)."""
+    import numpy as np
+    import torch
+    from decimal import Decimal
+    from tidb_tpu_torch.bench import tpch
+    from tidb_tpu_torch.cluster import Cluster
+    from tidb_tpu_torch.cluster.coordinator import _WorkerClient
+    from tidb_tpu_torch.mpp.exec import _round_capacity, _shuffle_capacity
+    from tidb_tpu_torch.native.build import load_library
+    from tidb_tpu_torch.testkit import _fmt
+    on_card = device is None
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    workers = WorkerProcs(tmp, device)
+    cl = None
+    replies = []
+    out = {"ms": {}, "phase": {}, "launches": {}, "peak_mib": {},
+           "held": dict.fromkeys(KERNELS, 0)}
+    nw = CLUSTER_WORKERS
+    try:
+        t0 = time.perf_counter()
+        paths, shard_rows = cluster_shards(tk, tmp, nw)
+        out["write_s"] = time.perf_counter() - t0
+        if load_library("loader") is None:
+            log("cluster: no native loader (g++): IMPORT INTO parses with "
+                "the Python fallback")
+        t0 = time.perf_counter()
+        procs = [workers.start() for _ in range(nw)]
+        ports = [workers.ready(p) for p in procs]
+        cl = Cluster(ports, spawn_worker=workers.spawn, device=device)
+        record_replies(cl, replies)
+        out["start_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cl.ddl(tpch.DDL["lineitem"])
+        cl._fanout(lambda i, w: w.call({"op": "load_sql", "sqls": [
+            f"import into lineitem from '{paths[i]}'"]}))
+        got = [o["rows"] for o, _ in cl._fanout(
+            lambda i, w: w.call({"op": "table_rows", "table": "lineitem"}))]
+        out["load_s"] = time.perf_counter() - t0
+        if got != shard_rows:
+            fail(f"cluster: lineitem rows per worker {got} != {shard_rows}")
+        log(f"cluster: {nw} workers started in {out['start_s']:.1f} s; "
+            f"lineitem {sum(shard_rows)} rows dealt {shard_rows}: .tbl "
+            f"text {out['write_s']:.1f} s, IMPORT INTO {out['load_s']:.1f} s")
+        layouts = cl.spmd_init()
+        out["backend"] = layouts[0]["backend"]
+        for lay in layouts:
+            if on_card and not lay["device"].startswith("cuda"):
+                fail(f"cluster: a worker's shard is on {lay['device']}")
+            if lay["backend"] != out["backend"]:
+                fail(f"cluster: backends differ: {layouts}")
+        if on_card and torch.cuda.device_count() < nw and \
+                out["backend"] != "gloo":
+            fail(f"cluster: {nw} ranks on {torch.cuda.device_count()} "
+                 f"card(s) took {out['backend']}, not gloo")
+        log(f"cluster: process group of {nw} ranks, backend "
+            f"{out['backend']} (the layout rule: {nw} ranks on "
+            f"{torch.cuda.device_count()} card(s)); devices "
+            f"{[lay['device'] for lay in layouts]}")
+
+        def kernel_check(on):
+            cl._fanout(lambda i, w: w.call({"op": "kernel_check",
+                                            "on": on}))
+
+        def timed(label, fn, runs, check):
+            """Run fn cold once, `runs` warm times, then once more with
+            the workers' kernel_check on (held_to_plain); check each
+            result and its replies' meta. -> warm median ms."""
+            warm = []
+            for i in range(2 + runs):
+                checked = i == 1 + runs
+                if checked:
+                    kernel_check(True)
+                n0 = len(replies)
+                t0 = time.perf_counter()
+                res = fn()
+                ms = (time.perf_counter() - t0) * 1e3
+                if checked:
+                    kernel_check(False)
+                    held_to_plain(label, replies[n0:], out["held"])
+                else:
+                    last = replies[n0:]
+                check(res, replies[n0:], i)
+                if 0 < i <= runs:
+                    warm.append(ms)
+            out["ms"][label] = statistics.median(warm)
+            metas = [m for _p, _op, m in last]
+            out["phase"][label] = {
+                k: sum(m.get("phase", {}).get(k, 0) for m in metas)
+                for k in ("syncs", "dispatches", "spmd_upload_bytes",
+                          "collective_stage_bytes", "mpp_exchange_bytes",
+                          "fetch_bytes", "upload_bytes")}
+            log(f"cluster {label}: warm median {out['ms'][label]:.3f} ms "
+                f"({runs} warm); last run summed over ranks: "
+                f"{json.dumps(out['phase'][label])}")
+
+        def frag_metas(rs, op):
+            return [(p, m) for p, o, m in rs if o == op]
+
+        # 1. spmd_agg of Q6's shape
+        (ship, _), (disc, _), (qty, _), (price, _) = tpch._lineitem(
+            tk, "l_shipdate", "l_discount", "l_quantity", "l_extendedprice")
+        want_q6 = tpch.q6_oracle(tk)[0][0]
+        from tidb_tpu_torch.types.time_types import parse_date
+        m6 = (ship >= parse_date("1994-01-01")) & \
+            (ship < parse_date("1995-01-01")) & (disc >= 5) & \
+            (disc <= 7) & (qty < 2400)
+
+        def check_q6(res, rs, i):
+            got = tpch._fmt_scaled(int(np.asarray(res["sums"][0]).ravel()[0]),
+                                   4)
+            if got != want_q6 or int(np.asarray(res["counts"]).ravel()[0]) \
+                    != int(m6.sum()):
+                fail(f"cluster spmd q6 run {i}: {got} "
+                     f"{res['counts']} != {want_q6} {int(m6.sum())}")
+            check_rank_meta("spmd q6", frag_metas(rs, "spmd_frag"), 1,
+                            on_card)
+        timed("spmd_q6", lambda: cl.spmd_agg(CLUSTER_Q6), WARM_RUNS,
+              check_q6)
+
+        # 1b. a global spmd_agg whose filter does not lower to bounds
+        (lq, _), (cd, _), (rd, _) = tpch._lineitem(
+            tk, "l_quantity", "l_commitdate", "l_receiptdate")
+        mm = cd < rd
+
+        def check_masked(res, rs, i):
+            got = [int(np.asarray(x).ravel()[0]) for x in res["sums"]]
+            if got != [int(lq[mm].sum()), int(mm.sum())]:
+                fail(f"cluster spmd masked run {i}: {got} != "
+                     f"{[int(lq[mm].sum()), int(mm.sum())]}")
+            check_rank_meta("spmd masked", frag_metas(rs, "spmd_frag"), 1,
+                            on_card)
+        timed("spmd_masked", lambda: cl.spmd_agg(CLUSTER_MASKED), WARM_RUNS,
+              check_masked)
+
+        # 2. spmd_agg grouped
+        (ln, _), (lq, _) = tpch._lineitem(tk, "l_linenumber", "l_quantity")
+        seg = np.clip(ln.astype(np.int64), 0, CLUSTER_GROUPS - 1)
+        want_s = np.bincount(seg, weights=None, minlength=CLUSTER_GROUPS)
+        want_q = np.zeros(CLUSTER_GROUPS, dtype=np.int64)
+        np.add.at(want_q, seg, lq.astype(np.int64))
+
+        def check_grouped(res, rs, i):
+            if res["sums"][0].tolist() != want_q.tolist() or \
+                    res["sums"][1].tolist() != want_s.tolist() or \
+                    res["counts"].tolist() != want_s.tolist():
+                fail(f"cluster spmd grouped run {i}: {res} != "
+                     f"{want_q} {want_s}")
+            check_rank_meta("spmd grouped", frag_metas(rs, "spmd_frag"), 1,
+                            on_card)
+        timed("spmd_grouped", lambda: cl.spmd_agg(
+            CLUSTER_GROUPED, n_groups=CLUSTER_GROUPS), WARM_RUNS,
+            check_grouped)
+
+        # 3. query_agg of Q1 and Q6 (the partial fan-out)
+        for q in ("q1", "q6"):
+            sql, want = sql_and_rows(tk, exp, q)
+
+            def check_rows(rows, rs, i, q=q, want=want):
+                got = [tuple("<nil>" if v is None else _fmt(v) for v in r)
+                       for r in rows]
+                if got != want:
+                    fail(f"cluster query_agg {q} run {i}: {got} != {want}")
+                # a cold partial also runs first-touch ANALYZE: its syncs
+                # are not one per partition
+                check_rank_meta(f"query_agg {q}", frag_metas(rs, "partial"),
+                                None if i else False, on_card)
+            timed(f"query_agg_{q}", lambda sql=sql: cl.query_agg(sql),
+                  WARM_RUNS, check_rows)
+
+        # 4. the worker op spmd_shuffle: lineitem x orders
+        (lok, _), (lq, _) = tpch._lineitem(tk, "l_orderkey", "l_quantity")
+        (ook, _), (opr, prios) = tpch._columns(tk, "orders", "o_orderkey",
+                                               "o_orderpriority")
+        lc = -(-len(lok) // nw)
+        lb = -(-len(ook) // nw)
+
+        def padded(a, cap, fill=0):
+            a = np.asarray(a)
+            return np.concatenate([a, np.full(cap * nw - len(a), fill,
+                                              dtype=a.dtype)])
+        pk, pv = padded(lok.astype(np.int64), lc), padded(lq.astype(
+            np.int64), lc)
+        pok = padded(np.ones(len(lok), dtype=bool), lc, False)
+        bk, bp = padded(ook.astype(np.int64), lb), padded(opr.astype(
+            np.int64), lb)
+        bok = padded(np.ones(len(ook), dtype=bool), lb, False)
+        cap = _round_capacity(max(_shuffle_capacity(pk, pok, nw),
+                                  _shuffle_capacity(bk, bok, nw), 1))
+        ng = len(prios)
+        want_rows = {str(r[0]): (Decimal(str(r[1])), int(r[2]))
+                     for r in shuffle_rows}
+
+        def shuffle():
+            def call(i, w):
+                return w.call({"op": "spmd_shuffle", "local_cap": lc,
+                               "local_cap_build": lb, "n_groups": ng,
+                               "cap": cap},
+                              {"pk": pk[i * lc:(i + 1) * lc],
+                               "pv": pv[i * lc:(i + 1) * lc],
+                               "pok": pok[i * lc:(i + 1) * lc],
+                               "bk": bk[i * lb:(i + 1) * lb],
+                               "bp": bp[i * lb:(i + 1) * lb],
+                               "bok": bok[i * lb:(i + 1) * lb]})
+            return cl._fanout(call)
+
+        def check_shuffle(outs, rs, i):
+            for _meta, arrs in outs:
+                got = {prios[c]: (Decimal(int(arrs["sums"][c])) / 100,
+                                  int(arrs["counts"][c]))
+                       for c in range(ng) if arrs["counts"][c]}
+                if got != want_rows:
+                    fail(f"cluster shuffle run {i}: {got} != phase_mpp's "
+                         f"{want_rows}")
+            check_rank_meta("shuffle", frag_metas(rs, "spmd_shuffle"),
+                            None if out["backend"] == "nccl" else 2,
+                            on_card)
+        timed("spmd_shuffle", shuffle, CLUSTER_SHUFFLE_RUNS, check_shuffle)
+        out["shuffle_cap"] = cap
+        log(f"cluster shuffle: {len(lok)} x {len(ook)} rows, cap {cap}; "
+            f"rows == phase_mpp's MPP_SHUFFLE answer on every rank")
+
+        # 5. the control plane on the card
+        import threading
+        owner = [_WorkerClient(ports[0]) for _ in range(3)]
+        stamps = [[] for _ in owner]
+
+        def draw(j):
+            for _ in range(50):
+                stamps[j].append(owner[j].call({"op": "tso"})[0]["ts"])
+        ths = [threading.Thread(target=draw, args=(j,)) for j in range(3)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=60)
+        flat = [s for st in stamps for s in st]
+        if any(b <= a for st in stamps for a, b in zip(st, st[1:])) or \
+                len(set(flat)) != len(flat) or len(flat) != 150:
+            fail("cluster: the TSO owner's stamps are not strictly "
+                 "increasing and distinct across its callers")
+        for c in owner:
+            c.sock.close()
+        from tidb_tpu_torch.codec.tablecodec import record_key
+        from tidb_tpu_torch.codec.codec import encode_row_value
+        from tidb_tpu_torch.types.datum import Datum, Kind
+        cl.ddl("create table kv2 (a int primary key, b int)")
+        tid = int(cl.query("select tidb_table_id from information_schema."
+                           "tables where table_name = 'kv2'")[0][0])
+        start, commit = cl.tso(), cl.tso()
+        rv = encode_row_value([Datum(Kind.INT, 1), Datum(Kind.INT, 42)])
+        for w in (1, 2):
+            cl.workers[w].call(
+                {"op": "prewrite", "n": 1, "has_v": [True],
+                 "start_ts": start},
+                {"k0": np.frombuffer(record_key(tid, 1), dtype=np.uint8),
+                 "v0": np.frombuffer(rv, dtype=np.uint8)})
+            cl.workers[w].call({"op": "commit", "start_ts": start,
+                                "commit_ts": commit})
+            if cl.query("select b from kv2 where a = 1", worker=w) != \
+                    [(42,)]:
+                fail(f"cluster: the 2PC write is not visible on worker {w}")
+            if cl.tso(worker=w) <= commit:
+                fail(f"cluster: worker {w}'s TSO is not past the commit ts")
+        log("cluster: TSO owner strictly increasing over 3 callers x 50; "
+            "2PC prewrite/commit over RPC visible on workers 1 and 2, "
+            "their TSO past the commit ts")
+
+        cl.enable_replication()
+        cl.ddl("create table kr (id int primary key, v int)")
+        rng = np.random.default_rng(SEED)
+        vals = rng.integers(0, 1000, CLUSTER_KILL_ROWS)
+        per = CLUSTER_KILL_ROWS // nw
+        for w in range(nw):
+            cl.workers[w].call({"op": "load_sql", "sqls": [
+                "insert into kr values " + ",".join(
+                    f"({i + 1},{vals[i]})"
+                    for i in range(w * per, (w + 1) * per))]})
+        kq = "select sum(v), count(*) from kr"
+        want_k = [(str(int(vals.sum())), str(CLUSTER_KILL_ROWS))]
+
+        def kill_rows():
+            return [tuple(_fmt(v) for v in r) for r in cl.query_agg(kq)]
+        if kill_rows() != want_k:
+            fail(f"cluster: replicated table {kill_rows()} != {want_k}")
+        victim = workers.ports[cl.workers[1].port]
+        victim.kill()
+        victim.wait(timeout=30)
+        n0 = len(replies)
+        t0 = time.perf_counter()
+        got = kill_rows()
+        out["recover_s"] = time.perf_counter() - t0
+        if got != want_k:
+            fail(f"cluster: after kill -9 of worker 1 {got} != {want_k}: "
+                 "an acknowledged write was lost")
+        new_port = cl.workers[1].port
+        mine = [(p, m) for p, op, m in replies[n0:]
+                if op == "partial" and p == new_port]
+        if not mine:
+            fail("cluster: the replacement worker ran no fragment")
+        check_rank_meta("recovered partial", mine, None, on_card)
+        if on_card and not mine[-1][1]["launches"].get("masked_sums"):
+            fail(f"cluster: the replacement's fragment launched no "
+                 f"masked_sums: {mine[-1][1]}")
+        kernel_check(True)
+        n1 = len(replies)
+        got = kill_rows()
+        kernel_check(False)
+        if got != want_k:
+            fail(f"cluster: the recovered query's checked run {got} != "
+                 f"{want_k}")
+        held_to_plain("recovered", replies[n1:], out["held"])
+        log(f"cluster: kill -9 of worker 1 under replication: query_agg "
+            f"recovered in {out['recover_s']:.1f} s on the replacement "
+            f"({mine[-1][1]['device']}, launches "
+            f"{json.dumps(mine[-1][1]['launches'])}); rows == every acked "
+            "write")
+
+        # each rank's launches over the phase (the replacement's under
+        # its own port): every scan kernel on each of the first ranks
+        for port, _op, meta in replies:
+            per = out["launches"].setdefault(str(port), {})
+            for k, v in meta.get("launches", {}).items():
+                per[k] = per.get(k, 0) + v
+        for port in ports if on_card else ():
+            per = out["launches"].get(str(port), {})
+            for name in KERNELS:
+                if not per.get(name):
+                    fail(f"cluster: {name} was not launched on worker "
+                         f"{port}: {per}")
+        log(f"cluster: launches per rank {json.dumps(out['launches'])}; "
+            f"calls held to their plain versions on the ranks "
+            f"{json.dumps(out['held'])}, max abs err "
+            f"{json.dumps({k: ERR[k] for k in KERNELS})}")
+        for port, _op, meta in replies:
+            key = str(port)
+            out["peak_mib"][key] = max(out["peak_mib"].get(key, 0.0),
+                                       meta.get("peak_bytes", 0) / 2**20)
+        log(f"cluster: peak device memory per rank (MiB) "
+            f"{json.dumps(out['peak_mib'])}")
+    finally:
+        try:
+            if cl is not None:
+                cl.stop()
+        finally:
+            workers.stop()
+            shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"cluster phase {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def main():
     sys.path.insert(0, ROOT)
     card = phase_card()
@@ -3332,6 +3988,15 @@ def main():
         f"{sum(guard.hook_calls.values())} hook calls "
         f"({json.dumps(guard.hook_calls)}) ran under "
         "set_sync_debug_mode('error')")
+    # the cluster's kernels launch in its worker processes: each reply
+    # carries its rank's launches, summed here as the path's count
+    cluster = counted("cluster", lambda: phase_cluster(
+        tk, exp, card, mpp.pop("twin_rows")["shuffle"]), folds=False,
+        kernels=())
+    by_path["cluster"] = {name: sum(r.get(name, 0) for r in
+                                    cluster["launches"].values())
+                          for name in KERNELS}
+    torch.cuda.empty_cache()
     counted("wire", lambda: phase_wire(tk, exp, nparts, meds))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_br_")
     try:
@@ -3369,6 +4034,9 @@ def main():
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "mpp": by_path["mpp"][name],
+            "cluster_by_rank": {port: c.get(name, 0) for port, c in
+                                cluster["launches"].items()},
+            "cluster_held": cluster["held"][name],
             "max_abs_err": ERR[name], "ms": r[4], "plain_ms": r[5],
             "bound_ms": r[7], "bound_by": "bytes", "library_ms": r[6],
             "kernel_device_ms": r[9]}
@@ -3382,6 +4050,8 @@ def main():
                                        "br": restored}, "card": card}),
           flush=True)
     print(json.dumps({"mpp_mesh": {"shards": MPP_SHARDS, **mpp},
+                      "card": card}), flush=True)
+    print(json.dumps({"cluster": {"workers": CLUSTER_WORKERS, **cluster},
                       "card": card}), flush=True)
     print(json.dumps({"programs": vec["programs"] + ml["programs"],
                       "card": card}), flush=True)

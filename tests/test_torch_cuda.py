@@ -4,7 +4,10 @@ rule that a failed fused fragment fails its statement there, and the
 sort and runs lowerings of the general group-by against the CPU, with
 no blocking wait inside a fragment; the delta fold against the CPU and
 under the sync guard, a replica's mirror on the card (and a grant loss
-there retried on the leader), and a restored table's first upload. This file imports nothing of
+there retried on the leader), and a restored table's first upload; what
+torch.distributed does with the card (gloo's collectives on CUDA
+tensors, NCCL refusing two ranks on one card) and, on a machine with
+three cards, the cluster over NCCL. This file imports nothing of
 tidb_tpu or jax, so it also runs on a machine that has the card and no
 JAX:
     python -m pytest tests/test_torch_cuda.py -q
@@ -656,3 +659,272 @@ def test_mesh_of_four_shards_on_card():
     with pytest.raises(DeviceUnavailableError, match="generic"):
         tk.must_query(tpch.QUERIES["q6"])
     assert m.get("fused_pipeline_hit", 0) == single
+
+
+def test_spmd_fragment_gloo_world_of_one_on_card():
+    """run_dag_spmd in one process as a gloo world of one, two shards of
+    the card: the whole fragment (the shard binding, the per-shard
+    bodies, the staged all_reduce) runs under set_sync_debug_mode("error")
+    but for its one fetch, which is the stage; the global shapes launch
+    range_filter_sums and masked_sums and the grouped one
+    dense_group_sums, once per shard; the results equal numpy."""
+    import socket
+    import torch.distributed as dist
+    from chip_smoke import StatementGuard
+    from tidb_tpu_torch.mpp.spmd import run_dag_spmd
+    from tidb_tpu_torch.parallel import GroupMesh
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.planner.optimize import optimize
+    from tidb_tpu_torch.planner.physical import PhysTableReader
+    from tidb_tpu_torch.testkit import TestKit, import_columns
+    from tidb_tpu_torch.utils import phase
+    rng = np.random.default_rng(12)
+    n = 20000
+    k, g, v = (rng.integers(0, 100, n), rng.integers(0, 8, n),
+               rng.integers(0, 1000, n))
+    tk = TestKit()
+    tk.must_exec("create table t (id int primary key, k int, g int, v int)")
+    import_columns(tk, "t", {"id": (np.arange(n), None, None),
+                             "k": (k, None, None), "g": (g, None, None),
+                             "v": (v, None, None)})
+
+    # the coordinator's plan: its Domain holds the schema and no rows, so
+    # the aggregation stays a pushed reader DAG (a loaded table fuses)
+    planner = TestKit(device="cpu")
+    planner.must_exec("create table t (id int primary key, k int, g int, "
+                      "v int)")
+
+    def dag_of(sql):
+        stack = [optimize(parse(sql)[0], planner.sess._plan_ctx())]
+        while stack:
+            p = stack.pop()
+            if isinstance(p, PhysTableReader) and p.dag.aggs:
+                return p.dag
+            stack.extend(p.children)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = GroupMesh([torch.device("cuda")] * 2, 0, 1, "gloo")
+        for sql, n_groups, kernel, want in (
+                ("select sum(v), count(*) from t where k >= 10 and k < 60",
+                 None, "range_filter_sums",
+                 [v[(k >= 10) & (k < 60)].sum(), ((k >= 10) & (k < 60)).sum()]),
+                ("select sum(v), count(*) from t where k + g < 50", None,
+                 "masked_sums", [v[k + g < 50].sum(), (k + g < 50).sum()]),
+                ("select g, sum(v) from t group by g", 8, "dense_group_sums",
+                 [np.bincount(g, weights=v, minlength=8).astype(np.int64)])):
+            dag = dag_of(sql)
+            run_dag_spmd(tk.domain, dag, mesh, n, n_groups)     # cold
+            sk.reset_launches()
+            phase.reset()
+            with StatementGuard():
+                out = run_dag_spmd(tk.domain, dag, mesh, n, n_groups)
+            snap = phase.snap()
+            assert snap.get("syncs") == 1, (sql, snap)
+            assert snap.get("collective_stages") == 1, (sql, snap)
+            assert sk.COUNTS[kernel] == 2, (sql, dict(sk.COUNTS))
+            for got, w in zip(out["sums"], want):
+                assert np.asarray(got).tolist() == np.asarray(w).tolist()
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _collective(name, t):
+    import torch.distributed as dist
+    if name == "all_reduce":
+        dist.all_reduce(t)
+        return t
+    if name == "all_to_all_single":
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t)
+        return out
+    if name == "all_gather_into_tensor":
+        out = torch.empty_like(t)
+        dist.all_gather_into_tensor(out, t)
+        return out
+    dist.broadcast(t, 0)
+    return t
+
+
+@pytest.mark.parametrize("name", ["all_reduce", "all_to_all_single",
+                                  "all_gather_into_tensor", "broadcast"])
+def test_gloo_collective_takes_cuda_tensors(name):
+    """gloo takes CUDA tensors in each collective the cluster could use
+    (a world of one on the card) and gives the CPU tensor's result. The
+    port stages them through pinned host memory all the same
+    (parallel/mesh.py:_stage), so that the copy to the host is one
+    counted sync."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        want = _collective(name, torch.arange(8, dtype=torch.int64))
+        got = _collective(name, torch.arange(8, dtype=torch.int64,
+                                             device="cuda"))
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+    finally:
+        dist.destroy_process_group()
+
+
+_NCCL_RANK = r"""
+import sys, torch, torch.distributed as dist
+from datetime import timedelta
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method="tcp://127.0.0.1:" + sys.argv[2],
+                        world_size=2, rank=int(sys.argv[1]),
+                        timeout=timedelta(seconds=40))
+t = torch.ones(4, device="cuda")
+dist.all_reduce(t)
+torch.cuda.synchronize()
+print("RESULT", t.tolist(), flush=True)
+"""
+
+
+def test_nccl_refuses_two_ranks_on_one_card():
+    """Two processes on one card cannot form an NCCL group (NCCL:
+    "Duplicate GPU detected"): the reason parallel/dist.py:backend_for
+    gives several ranks on one card gloo, by the layout and never after
+    an NCCL error."""
+    import subprocess
+    port = str(_free_port())
+    procs = [subprocess.Popen([sys.executable, "-c", _NCCL_RANK, str(r),
+                               port], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    assert [p.returncode for p in procs] != [0, 0], outs
+    assert any("Duplicate GPU" in text for text in outs), outs
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 3,
+                    reason="needs three cards: one worker on each")
+def test_cluster_over_nccl_one_card_per_worker(tmp_path):
+    """Three workers, each shown a card of its own (CUDA_VISIBLE_DEVICES),
+    form their group over NCCL by the layout rule, each on the card its
+    Domain runs on. spmd_agg (global and grouped) and query_agg equal
+    numpy, the float64 shuffle equals the Python join, every rank's
+    reply comes from its card, one sync a fragment, and no collective
+    is staged through the host."""
+    import subprocess
+    from tidb_tpu_torch.cluster import Cluster
+    from tidb_tpu_torch.mpp.exec import _round_capacity, _shuffle_capacity
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    nw, rows = 3, 3000
+    procs, cl = [], None
+    try:
+        ports = []
+        for i in range(nw):
+            env = dict(os.environ, CUDA_VISIBLE_DEVICES=str(i),
+                       PYTHONPATH=repo + os.pathsep +
+                       os.environ.get("PYTHONPATH", ""))
+            with open(tmp_path / f"worker{i}.log", "w") as err:
+                p = subprocess.Popen([sys.executable, "-m",
+                                      "tidb_tpu_torch.cluster.worker", "0"],
+                                     cwd=repo, env=env,
+                                     stdout=subprocess.PIPE, stderr=err,
+                                     text=True)
+            procs.append(p)
+            line = p.stdout.readline().strip()
+            assert line.startswith("WORKER_READY"), line
+            ports.append(int(line.split()[1]))
+        cl = Cluster(ports, device="cpu")
+        layouts = cl.spmd_init()
+        assert [o["backend"] for o in layouts] == ["nccl"] * nw, layouts
+        assert all(o["device"].startswith("cuda") for o in layouts)
+        rng = np.random.default_rng(5)
+        k, g, v = (rng.integers(0, 100, rows), rng.integers(0, 8, rows),
+                   rng.integers(0, 1000, rows))
+        cl.ddl("create table t (id int primary key, k int, g int, v int)")
+        per = rows // nw
+        for w in range(nw):
+            cl.workers[w].call({"op": "load_sql", "sqls": [
+                "insert into t values " + ",".join(
+                    f"({i + 1},{k[i]},{g[i]},{v[i]})"
+                    for i in range(w * per, (w + 1) * per))]})
+        replies = []
+        for w in cl.workers:
+            call = w.call
+
+            def recorded(msg, arrays=None, call=call, **kw):
+                out, arrs = call(msg, arrays, **kw)
+                if msg.get("op") == "spmd_frag":
+                    replies.append(out)
+                return out, arrs
+            w.call = recorded
+        res = cl.spmd_agg("select sum(v), count(*) from t where k < 50")
+        m = k < 50
+        assert np.asarray(res["sums"][0]).ravel().tolist() == \
+            [int(v[m].sum())]
+        assert np.asarray(res["counts"]).ravel().tolist() == [int(m.sum())]
+        res = cl.spmd_agg("select g, sum(v) from t group by g", n_groups=8)
+        assert res["sums"][0].tolist() == \
+            np.bincount(g, weights=v, minlength=8).astype(np.int64).tolist()
+        assert len(replies) == 2 * nw
+        for meta in replies:
+            ph = meta["phase"]
+            assert meta["device"].startswith("cuda"), meta
+            assert ph.get("syncs") == 1, ph
+            assert not ph.get("collective_stages"), ph
+        got = sorted(tuple(r) for r in cl.query_agg(
+            "select g, sum(v), count(*) from t group by g"))
+        assert [(int(a), int(b), int(c)) for a, b, c in got] == [
+            (gg, int(v[g == gg].sum()), int((g == gg).sum()))
+            for gg in range(8) if (g == gg).any()]
+        # the shuffle: float64 quarters keep their type through NCCL
+        n, nd = 480, 60
+        pk = rng.integers(0, nd, n).astype(np.int64)
+        pv = rng.integers(0, 400, n) / 4.0
+        pok = np.ones(n, dtype=bool)
+        bk = np.arange(nd, dtype=np.int64)
+        bp = rng.integers(0, 7, nd).astype(np.int64)
+        bok = np.ones(nd, dtype=bool)
+        cap = _round_capacity(max(_shuffle_capacity(pk, pok, nw),
+                                  _shuffle_capacity(bk, bok, nw), 1))
+        lc, lb = n // nw, nd // nw
+        outs = cl._fanout(lambda i, w: w.call(
+            {"op": "spmd_shuffle", "local_cap": lc, "local_cap_build": lb,
+             "n_groups": 7, "cap": cap},
+            {"pk": pk[i * lc:(i + 1) * lc], "pv": pv[i * lc:(i + 1) * lc],
+             "pok": pok[i * lc:(i + 1) * lc], "bk": bk[i * lb:(i + 1) * lb],
+             "bp": bp[i * lb:(i + 1) * lb],
+             "bok": bok[i * lb:(i + 1) * lb]}))
+        want_s, want_c = np.zeros(7), np.zeros(7, dtype=np.int64)
+        np.add.at(want_s, bp[pk], pv)
+        np.add.at(want_c, bp[pk], 1)
+        for _meta, arrs in outs:
+            assert arrs["sums"].dtype == np.float64
+            assert arrs["sums"].tolist() == want_s.tolist()
+            assert arrs["counts"].tolist() == want_c.tolist()
+    except Exception:
+        for i in range(len(procs)):        # shown with the failure
+            print(f"worker {i}:", (tmp_path / f"worker{i}.log").read_text()
+                  [-3000:])
+        raise
+    finally:
+        try:
+            if cl is not None:
+                cl.stop()
+        finally:
+            for p in procs:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=30)

@@ -4,9 +4,9 @@ reader-DAG top-n; an ORDER BY, a window function and a hash join through
 the executor's device hooks; an exact vector search; CREATE MODEL and
 predict(), standalone and fused in a filter; a BACKUP/RESTORE round trip,
 a statement routed to a read replica, and Q6 and Q3 over a four-shard
-MPP mesh), its range lowering and its
-wire server with jax and tidb_tpu blocked from import, no module of it
-(nor chip_smoke.py) imports them,
+MPP mesh), its range lowering, its wire server and its cluster workers
+(spmd_init, spmd_frag, partial, the lease store) with jax and tidb_tpu
+blocked from import, no module of it (nor chip_smoke.py) imports them,
 and its entry points refuse to run on the host unless asked to."""
 import os
 import re
@@ -192,7 +192,10 @@ def test_no_jax_or_reference_imports():
                  "replica/manager.py", "br/snapshot.py", "br/restore.py",
                  "br/logformat.py", "tools/br.py", "tools/objstore.py",
                  "tools/dump.py", "mpp/fragment.py", "mpp/exec.py",
-                 "parallel/mesh.py", "parallel/dist.py"):
+                 "mpp/spmd.py", "parallel/mesh.py", "parallel/dist.py",
+                 "cluster/__init__.py", "cluster/rpc.py",
+                 "cluster/worker.py", "cluster/coordinator.py",
+                 "cluster/supervision.py"):
         assert os.path.join("tidb_tpu_torch", hook) in paths
     found = []
     for path in _sources():
@@ -211,24 +214,117 @@ def test_testkit_refuses_host_without_cuda(monkeypatch):
     assert TestKit(device="cpu").domain.copr.device.type == "cpu"
 
 
-@pytest.mark.parametrize("surface", ["cluster_transport"])
-def test_unported_surfaces_fail_clearly(surface):
-    """A surface the port does not carry yet fails with a clear error
-    instead of reaching for tidb_tpu."""
-    from tidb_tpu_torch.errors import UnsupportedError
-    from tidb_tpu_torch.owner import manager
-    with pytest.raises(UnsupportedError, match="not yet ported"):
-        manager._RemoteLeaseStore(worker_client=None)
+_BLOCKED_WORKER = r"""
+import importlib.abc, runpy, sys
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name in ("jax", "jaxlib", "tidb_tpu") or \
+                name.startswith(("jax.", "jaxlib.", "tidb_tpu.")):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+sys.argv = ["tidb_tpu_torch.cluster.worker", "0", "--cpu"]
+runpy.run_module("tidb_tpu_torch.cluster.worker", run_name="__main__")
+"""
+
+
+def _blocked_worker(procs):
+    p = subprocess.Popen([sys.executable, "-c", _BLOCKED_WORKER], cwd=ROOT,
+                         env=_env(), stdout=subprocess.PIPE,
+                         stderr=subprocess.DEVNULL, text=True)
+    procs.append(p)
+    line = p.stdout.readline().strip()
+    assert line.startswith("WORKER_READY"), line
+    return int(line.split()[1])
+
+
+def test_cluster_worker_runs_with_jax_and_reference_blocked():
+    """Two workers with jax, jaxlib and tidb_tpu blocked from import join
+    one gloo group and answer spmd_init, spmd_frag (spmd_agg) and
+    partial (query_agg)."""
+    from tidb_tpu_torch.cluster import Cluster
+    procs, cl = [], None
+    try:
+        cl = Cluster([_blocked_worker(procs), _blocked_worker(procs)],
+                     device="cpu")
+        outs = cl.spmd_init()
+        assert [o["backend"] for o in outs] == ["gloo", "gloo"], outs
+        cl.ddl("create table t (id int primary key, g int, v int)")
+        for w, rows in ((0, "(1, 0, 5), (2, 1, 7)"),
+                        (1, "(3, 1, 11), (4, 2, 13)")):
+            cl.workers[w].call({"op": "load_sql", "sqls": [
+                f"insert into t values {rows}"]})
+        res = cl.spmd_agg("select sum(v), count(*) from t where v > 5")
+        # a 0-d result crosses the frame as one row, as in the reference
+        assert res["sums"][0].tolist() == [31]
+        assert res["counts"].tolist() == [3]
+        res = cl.spmd_agg("select g, sum(v) from t group by g", n_groups=4)
+        assert res["sums"][0].tolist() == [5, 18, 13, 0]
+        assert [tuple(r) for r in cl.query_agg(
+            "select g, count(*) from t group by g order by g")] == \
+            [(0, 1), (1, 2), (2, 1)]
+    finally:
+        try:
+            if cl is not None:
+                cl.stop()
+        finally:
+            for p in procs:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=30)
+    assert [p.returncode for p in procs] == [0, 0]
+
+
+def test_cluster_worker_refuses_host_without_cuda():
+    """A worker started without --cpu runs its Domain on the card; on a
+    host without one it fails at start and never reports ready."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    out = subprocess.run([sys.executable, "-m",
+                          "tidb_tpu_torch.cluster.worker", "0"], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert "WORKER_READY" not in out.stdout
+    assert "runs on a CUDA device" in out.stderr, out.stderr[-2000:]
 
 
 @pytest.mark.parametrize("case", ["create_model", "vector_index",
-                                  "predict", "backup", "replica_sink"])
+                                  "predict", "backup", "replica_sink",
+                                  "cluster_transport"])
 def test_ported_surfaces_run(case, tmp_path):
     """Vector indexes, CREATE MODEL, predict(), BACKUP (restored into a
-    fresh store) and a replica:// changefeed run and give their
-    result."""
+    fresh store), a replica:// changefeed and the owner's remote lease
+    store over a cluster worker run and give their result."""
     import numpy as np
     from tidb_tpu_torch.testkit import TestKit
+    if case == "cluster_transport":
+        from tidb_tpu_torch.cluster.coordinator import _WorkerClient
+        from tidb_tpu_torch.owner.manager import remote_store
+        procs = []
+        try:
+            store = remote_store(_WorkerClient(_blocked_worker(procs)))
+            assert store.acquire("ddl-owner", "a", 30.0)
+            assert not store.acquire("ddl-owner", "b", 30.0)
+            assert store.renew("ddl-owner", "a", 30.0)
+            assert not store.renew("ddl-owner", "b", 30.0)
+            assert store.holder("ddl-owner") == "a"
+            store.resign("ddl-owner", "a")
+            assert store.holder("ddl-owner") is None
+            store.w.call({"op": "stop"})
+        finally:
+            for p in procs:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=30)
+        return
     tk = TestKit(device="cpu")
     tk.must_exec("create table v (id int primary key, a int, e vector(3))")
     tk.must_exec("insert into v values (1, 2, '[1,0,0]'), "

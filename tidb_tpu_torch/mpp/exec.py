@@ -33,8 +33,8 @@ import torch
 from ..expression import EvalCtx, eval_expr, eval_bool_mask
 from ..expression.vec import materialize_nulls
 from ..expression.torch_ns import TorchNS
-from ..parallel.mesh import (Mesh, Sharded, all_to_all, pmax, psum,
-                             shard_map, shard_rows)
+from ..parallel.mesh import (Mesh, Sharded, all_to_all_frames,
+                             merge_parts, psum, shard_map, shard_rows)
 from ..utils import device_guard
 from ..utils import phase
 from ..utils import metrics as _metrics
@@ -417,29 +417,27 @@ def mpp_shuffle_join_agg(mesh: Mesh, probe_keys, probe_vals, probe_valid,
             return frag
 
         def merge(sent):
-            # the exchange: one all_to_all per frame
-            def swap(side, j):
-                return [f.reshape(-1) for f in all_to_all(
-                    [s[side][j] for s in sent], mesh)]
-            pk2 = swap(0, 0)
-            pok2 = swap(0, 2)
-            bk2 = swap(1, 0)
-            bok2 = swap(1, 2)
-            bp2 = [f.reshape(-1) for f in all_to_all(
-                [s[1][1][0] for s in sent], mesh)]
-            pv2 = [[f.reshape(-1) for f in all_to_all(
-                [s[0][1][j] for s in sent], mesh)] for j in range(nvals)]
-            # exact global capacity bound, computed where the data is
-            needed = pmax([torch.maximum(s[0][3], s[1][3]) for s in sent],
-                          mesh)
+            # the exchange: all_to_all of every frame (on a group mesh
+            # one collective across the processes)
+            kinds = [[s[0][0] for s in sent], [s[0][2] for s in sent],
+                     [s[1][0] for s in sent], [s[1][2] for s in sent],
+                     [s[1][1][0] for s in sent]] + \
+                [[s[0][1][j] for s in sent] for j in range(nvals)]
+            pk2, pok2, bk2, bok2, bp2, *pv2 = [
+                [f.reshape(-1) for f in recv]
+                for recv in all_to_all_frames(kinds, mesh)]
             parts = [
                 _local_join_agg(pk2[d], [pv[d] for pv in pv2], pok2[d],
                                 bk2[d], bp2[d], bok2[d], n_groups,
                                 mesh.devices[d])
-                for d in range(ndev)]
-            sums = tuple(psum([p[0][j] for p in parts], mesh)
-                         for j in range(nvals))
-            return sums + (psum([p[1] for p in parts], mesh), needed)
+                for d in range(len(mesh.devices))]
+            # the sums, the counts and the exact global capacity bound
+            # (computed where the data is) in one merge
+            return tuple(merge_parts(
+                [([p[0][j] for p in parts], "sum") for j in range(nvals)] +
+                [([p[1] for p in parts], "sum"),
+                 ([torch.maximum(s[0][3], s[1][3]) for s in sent], "max")],
+                mesh))
         return shard_map(mesh, body_for, merge)
 
     mesh_fp = mesh.fingerprint()

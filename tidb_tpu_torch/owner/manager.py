@@ -58,8 +58,8 @@ class _RemoteLeaseStore:
     query traffic — interleaved frames would corrupt both streams."""
 
     def __init__(self, worker_client):
-        from ..unported import not_ported
-        raise not_ported("the cluster transport")
+        from ..cluster.coordinator import _WorkerClient
+        self.w = _WorkerClient(worker_client.port)
 
     def _call(self, action, key, node, ttl=0.0):
         # no lock here: _WorkerClient._call_mu already serializes the

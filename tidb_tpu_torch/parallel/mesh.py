@@ -22,7 +22,22 @@ shard order, and leaves its result on devices[0], the coordinator.
 With every shard on one card they are device tensor ops with no host
 round trip; shards on separate devices of one process copy with
 .to(device, non_blocking=True). psum adds the partials in shard order
-0..N-1, so a float result does not depend on timing."""
+0..N-1, so a float result does not depend on timing.
+
+A GroupMesh spans the processes of one torch.distributed group
+(parallel/dist.py: init_distributed, global_mesh): this process holds
+its local shards, `size` counts every process's, and process r's shards
+are block r of the global shard order. Its collectives merge the local
+shards in shard order first, then cross the group: psum, pmax and pmin
+as dist.all_reduce (SUM, MAX, MIN), all_to_all as one
+dist.all_to_all_single over the [src, dst, cap] frames. On the gloo
+backend a collective on CUDA tensors is staged through pinned host
+memory by the fetch seam (utils/fetch.py prefetch: one counted sync for
+a whole batch of tensors, phase counter `collective_stage_bytes`), and
+its result stays on the host: an all-reduced partial is then already
+fetched, so the stage is the statement's one sync. gloo's own CUDA
+paths would copy through the host too, with a wait on the card that no
+counter sees."""
 from __future__ import annotations
 
 import numpy as np
@@ -54,6 +69,31 @@ class Mesh:
 
     def __repr__(self):
         return f"Mesh({[str(d) for d in self.devices]}, {self.axis_names})"
+
+
+class GroupMesh(Mesh):
+    """A mesh over every process of one torch.distributed group:
+    `devices` are this process's shards, `size` the shards of all
+    `world` processes, and rank r's shards are global positions
+    [r * len(devices), (r + 1) * len(devices))."""
+
+    def __init__(self, devices, rank: int, world: int, backend: str,
+                 axis: str = "dp"):
+        super().__init__(devices, axis)
+        self.rank = rank
+        self.world = world
+        self.backend = backend
+
+    @property
+    def size(self) -> int:
+        return len(self.devices) * self.world
+
+    def fingerprint(self):
+        return (super().fingerprint(), self.rank, self.world, self.backend)
+
+    def __repr__(self):
+        return (f"GroupMesh({[str(d) for d in self.devices]}, rank "
+                f"{self.rank} of {self.world}, {self.backend})")
 
 
 def make_mesh(n_devices: int | None = None, devices=None,
@@ -208,42 +248,157 @@ def _to(t, device):
     return t if t.device == device else t.to(device, non_blocking=True)
 
 
-def psum(parts, mesh: Mesh) -> torch.Tensor:
-    """Sum of the shards' partials, added in shard order on devices[0]."""
-    dev = mesh.devices[0]
+_LOCAL = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
+
+
+def _local_merge(parts, op, dev):
     acc = _to(parts[0], dev)
     for p in parts[1:]:
-        acc = acc + _to(p, dev)
+        acc = _LOCAL[op](acc, _to(p, dev))
     return acc
+
+
+def merge_parts(batch, mesh: Mesh) -> list:
+    """Several collectives in one: `batch` is [(parts, op)], parts one
+    tensor per local shard in shard order, op "sum" | "max" | "min".
+    -> the merged tensor of each entry, on devices[0] (a GroupMesh over
+    gloo: on the host). Local shards merge in shard order; a GroupMesh
+    then all-reduces the whole batch across the group with one stage."""
+    dev = mesh.devices[0]
+    merged = [_local_merge(parts, op, dev) for parts, op in batch]
+    if not isinstance(mesh, GroupMesh):
+        return merged
+    return _all_reduce(mesh, merged, [op for _parts, op in batch])
+
+
+def psum(parts, mesh: Mesh) -> torch.Tensor:
+    """Sum of the shards' partials, added in shard order on devices[0]."""
+    return merge_parts([(parts, "sum")], mesh)[0]
 
 
 def pmax(parts, mesh: Mesh) -> torch.Tensor:
-    dev = mesh.devices[0]
-    acc = _to(parts[0], dev)
-    for p in parts[1:]:
-        acc = torch.maximum(acc, _to(p, dev))
-    return acc
+    return merge_parts([(parts, "max")], mesh)[0]
 
 
 def pmin(parts, mesh: Mesh) -> torch.Tensor:
-    dev = mesh.devices[0]
-    acc = _to(parts[0], dev)
-    for p in parts[1:]:
-        acc = torch.minimum(acc, _to(p, dev))
-    return acc
+    return merge_parts([(parts, "min")], mesh)[0]
 
 
 def all_to_all(frames, mesh: Mesh) -> list:
     """frames[s] is shard s's [ndev_dst, cap] send frame; -> one
     [ndev_src, cap] receive frame per destination shard d, row s being
     what shard s sent to d, on devices[d]."""
+    return all_to_all_frames([frames], mesh)[0]
+
+
+def all_to_all_frames(kinds, mesh: Mesh) -> list:
+    """all_to_all of several frame kinds at once (a shuffle's keys,
+    validity and values): kinds[k] is the per-local-shard frames of one
+    kind, all [size, cap]. On a GroupMesh every kind crosses the group
+    in one dist.all_to_all_single, each kind carried as int64 bits
+    (_frame_bits) and given back its own type."""
+    if isinstance(mesh, GroupMesh):
+        return _group_all_to_all(kinds, mesh)
     n = mesh.size
-    if len(mesh.distinct()) == 1:
-        # one card: swap the [src, dst, cap] axes of the stacked frames
-        swapped = torch.stack(list(frames)).transpose(0, 1)
-        return [swapped[d] for d in range(n)]
-    return [torch.stack([_to(frames[s][d], mesh.devices[d])
-                         for s in range(n)]) for d in range(n)]
+    out = []
+    for frames in kinds:
+        if len(mesh.distinct()) == 1:
+            # one card: swap the [src, dst, cap] axes of the stacked frames
+            swapped = torch.stack(list(frames)).transpose(0, 1)
+            out.append([swapped[d] for d in range(n)])
+        else:
+            out.append([torch.stack([_to(frames[s][d], mesh.devices[d])
+                                     for s in range(n)])
+                        for d in range(n)])
+    return out
+
+
+# ---- collectives across processes (GroupMesh) ------------------------
+
+def _stage(mesh: GroupMesh, tensors) -> list:
+    """The tensors as the group's backend takes them: on gloo, CUDA
+    tensors fetched into pinned host memory, the whole batch behind one
+    counted sync (utils/fetch.py); anything else as it is."""
+    if mesh.backend != "gloo" or \
+            not any(t.device.type == "cuda" for t in tensors):
+        return list(tensors)
+    from ..utils import phase
+    from ..utils.fetch import host_array, prefetch
+    fetched = prefetch(list(tensors))
+    out = [torch.from_numpy(host_array(f)) for f in fetched]
+    phase.inc("collective_stages")
+    phase.add("collective_stage_bytes",
+              sum(t.numel() * t.element_size() for t in out))
+    return out
+
+
+def _dist_op(op):
+    import torch.distributed as dist
+    return {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+            "min": dist.ReduceOp.MIN}[op]
+
+
+def _all_reduce(mesh: GroupMesh, tensors, ops) -> list:
+    import torch.distributed as dist
+    out = []
+    for t, op in zip(_stage(mesh, tensors), ops):
+        # all_reduce writes in place: into a copy, never into the
+        # program's own output, and never into a staged buffer that
+        # another entry shares (a count state and the row count are
+        # one tensor, and prefetch copies a tensor once)
+        buf = t.reshape(-1).clone()
+        dist.all_reduce(buf, op=_dist_op(op))
+        out.append(buf.reshape(t.shape))
+    return out
+
+
+def _frame_bits(t):
+    """A frame as int64 for the one all_to_all_single, losslessly:
+    8-byte types bit for bit, narrower floats through float64, bool and
+    narrower integers widened."""
+    if t.dtype == torch.int64:
+        return t
+    if t.dtype.itemsize == 8:
+        return t.view(torch.int64)
+    if t.dtype.is_floating_point:
+        return t.to(torch.float64).view(torch.int64)
+    return t.to(torch.int64)
+
+
+def _frame_back(t, dtype):
+    """_frame_bits undone."""
+    if dtype == torch.int64:
+        return t
+    if dtype.itemsize == 8:
+        return t.view(dtype)
+    if dtype.is_floating_point:
+        return t.view(torch.float64).to(dtype)
+    return t.to(dtype)
+
+
+def _group_all_to_all(kinds, mesh: GroupMesh) -> list:
+    import torch.distributed as dist
+    loc, world, nk = len(mesh.devices), mesh.world, len(kinds)
+    dev = mesh.devices[0]
+    dtypes = [frames[0].dtype for frames in kinds]
+    cap = int(kinds[0][0].shape[1])
+    # [kind, src, dst process, dst shard, cap] -> [dst process, ...]
+    send = torch.stack([torch.stack([_frame_bits(_to(f, dev))
+                                     for f in frames])
+                        for frames in kinds])
+    send = send.view(nk, loc, world, loc, cap).permute(2, 0, 1, 3, 4)
+    send = _stage(mesh, [send.contiguous()])[0]
+    recv = torch.empty(send.shape, dtype=send.dtype, device=send.device,
+                       pin_memory=send.device.type == "cpu" and
+                       dev.type == "cuda")
+    dist.all_to_all_single(recv, send)
+    if recv.device != dev:
+        recv = recv.to(dev, non_blocking=True)
+    # recv[src process, kind, src shard, dst shard, cap]: destination d's
+    # frame is every source's row, in global source order
+    return [[_frame_back(recv[:, k, :, d, :].reshape(world * loc, cap),
+                         dtypes[k])
+             for d in range(loc)] for k in range(nk)]
 
 
 # ---- programs -----------------------------------------------------------
