@@ -14,7 +14,7 @@ table) against their host twin, then the executor's device hooks (ORDER
 BYs over customer and orders, window functions over all of orders,
 row-returning inner, left, semi and anti hash joins between them) against
 their host twin and the reference's committed digests, then vector
-search over 500,000 x VECTOR(128) (sift-128-euclidean's shape, a
+search over 250,000 x VECTOR(128) (sift-128-euclidean's shape, a
 seeded mixture of Gaussians loaded by IMPORT INTO's bulk path: exact
 top-10 in three metrics, ties across the 10th row and NULL vectors, a
 hybrid search at 1 % selectivity, an IVF index trained on the card with
@@ -1320,14 +1320,159 @@ def phase_executor(tk, exp, guard, card=""):
     return out
 
 
+# ---- the evaluator's builtin functions (bench/tpch.py BUILTIN_CASES) ----
+# the counters a builtin statement's route moves: fused on the card, or
+# declined by the device rule (a fused decline whose fallback's reader
+# DAG the rule sends to the host: copr_host_bound)
+BUILTIN_COUNTERS = ROUTE_COUNTERS + ("copr_host_bound", "device_fallback")
+BUILTIN_ROUTES = {
+    "fused": {"fused_pipeline_hit": 1},
+    "declined": {"fused_pipeline_fallback": 1, "copr_host_exec": 1,
+                 "copr_host_bound": 1}}
+# the cases whose aggregates fit the scan kernels (kernel_aggs_fit, every
+# argument an int64 with no NULL mask): one launch of the kernel per
+# partition of their table; no other case launches one
+BUILTIN_KERNELS = {"json_orders": "dense_group_sums",
+                   "bits_orders": "dense_group_sums"}
+
+
+def phase_builtins(tk, exp, guard, card=""):
+    """The evaluator's device functions over the SF1 tables already
+    loaded (bench/tpch.py BUILTIN_CASES: math on lineitem, casts, dates,
+    strings, JSON text, bits over BIGINT UNSIGNED and NULL logic on
+    orders, customer and part, and one shape the device rule declines).
+    Each statement runs as its host twin (copr.use_device = False; cold,
+    then warm), whose rows must equal the reference's committed count
+    and digest (bench/builtins_sf1_expected.json), then on the card cold
+    and WARM_RUNS warm (a declined shape: cold and one warm), whose rows
+    must equal the host twin's. Each card run takes its route
+    (BUILTIN_ROUTES: one fused fragment on the card, or the rule's
+    decline with its reason) and no other; every fragment
+    enqueue under the sync guard; a warm run makes one dispatch and one
+    sync per partition of its table (at most 2), uploads nothing and
+    builds no dictionary table (DICT_TABLE_STATS), a declined one
+    dispatches nothing. A fused case runs once more after its warm runs
+    through checked_kernels (not in the warm median): each scan kernel
+    it launches is held to its plain version on the same tensors, and
+    the cases of BUILTIN_KERNELS launch their kernel once per partition
+    there, the others none. -> {name: {"card_ms", "host_twin_ms",
+    "rows", "dispatches"}, "checked": [(case, kernel, shape)] of the
+    compared calls, "seconds": the phase's wall time}."""
+    from tidb_tpu_torch.bench import tpch
+    from tidb_tpu_torch.expression import vec as tvec
+    from tidb_tpu_torch.utils import phase
+    t_phase = time.perf_counter()
+    dom = tk.domain
+    copr = dom.copr
+    cuda = copr.device.type == "cuda"
+    table_of = {"math_lineitem": "lineitem", "dates_lineitem": "lineitem",
+                "declined_cast_char": "customer",
+                "strings_customer": "customer", "strings_part": "part"}
+    out, checked_calls = {}, []
+    for name, sql, route, reason in tpch.BUILTIN_CASES:
+        host_ms, want = [], None
+        f0 = fallbacks(dom)
+        copr.use_device = False
+        try:
+            for i in range(2):
+                t0 = time.perf_counter()
+                rows = tk.must_query(sql)._norm()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                if want is None:
+                    want = rows
+                elif rows != want:
+                    fail(f"builtins {name}: host twin rows changed")
+        finally:
+            copr.use_device = True
+        for k, v in fallbacks(dom).items():
+            TWIN_MOVES[k] = TWIN_MOVES.get(k, 0) + v - f0[k]
+        got_ref = {"rows": len(want), "sha256": tpch.rows_digest(want)}
+        if got_ref != exp.get(name):
+            fail(f"builtins {name}: host twin {got_ref} != the reference's "
+                 f"{exp.get(name)}")
+        parts = partitions_of(tk, table_of.get(name, "orders"))
+        disp_want = 0 if route == "declined" else parts
+        if disp_want > 2:
+            fail(f"builtins {name}: {parts} partitions")
+        warm = []
+        for i in range(2 if route == "declined" else 2 + WARM_RUNS):
+            checked = route != "declined" and i == 1 + WARM_RUNS
+            m0 = {c: dom.metrics.get(c, 0) for c in BUILTIN_COUNTERS}
+            b0 = tvec.DICT_TABLE_STATS["builds"]
+            g0 = guard.calls
+            phase.reset()
+            t0 = time.perf_counter()
+            if checked:
+                rows, calls = checked_kernels(lambda: tk.must_query(sql))
+                rows = rows._norm()
+            else:
+                rows = tk.must_query(sql)._norm()
+            ms = (time.perf_counter() - t0) * 1e3
+            snap = phase.snap()
+            if rows != want:
+                fail(f"builtins {name} run {i}: rows {rows[:3]}... "
+                     f"({len(rows)}) != host twin {want[:3]}... "
+                     f"({len(want)})")
+            d = {c: dom.metrics.get(c, 0) - m0[c] for c in BUILTIN_COUNTERS}
+            d = {c: n for c, n in d.items() if n}
+            if d != BUILTIN_ROUTES[route]:
+                fail(f"builtins {name} run {i}: route {d}, expected "
+                     f"{BUILTIN_ROUTES[route]} ({dom.last_fused_reason})")
+            if reason is not None and dom.last_fused_reason != reason:
+                fail(f"builtins {name} run {i}: declined as "
+                     f"{dom.last_fused_reason!r}, expected {reason!r}")
+            disp, syncs = snap.get("dispatches", 0), snap.get("syncs", 0)
+            builds = tvec.DICT_TABLE_STATS["builds"] - b0
+            if guard.calls - g0 != disp:
+                fail(f"builtins {name} run {i}: {disp} dispatches, "
+                     f"{guard.calls - g0} under the sync guard")
+            if syncs != (disp if cuda else 0) or \
+                    (disp != disp_want if i else disp < disp_want):
+                fail(f"builtins {name} run {i}: {phase_line(snap)}; "
+                     f"expected {disp_want} dispatches and syncs")
+            if i and (snap.get("upload_bytes", 0) or builds):
+                fail(f"builtins {name} warm run {i}: {phase_line(snap)}, "
+                     f"{builds} dictionary tables built")
+            if checked:
+                kern = BUILTIN_KERNELS.get(name)
+                names = [c[0] for c in calls]
+                if names != ([kern] * parts if kern else []):
+                    fail(f"builtins {name}: the checked run launched "
+                         f"{calls}, expected {kern or 'no kernel'} once "
+                         f"per partition ({parts})")
+                checked_calls.extend((name,) + c for c in calls)
+                log(f"builtins {name} checked run {ms:.2f} ms: "
+                    f"{len(calls)} kernel calls == their plain versions "
+                    f"{[c[1] for c in calls]}")
+                continue
+            if i:
+                warm.append(ms)
+            log(f"builtins {name} {'warm' if i else 'cold'} {ms:.2f} ms "
+                f"{phase_line(snap)} dict_table_builds={builds}")
+        out[name] = {"card_ms": statistics.median(warm),
+                     "host_twin_ms": host_ms[1], "rows": len(want),
+                     "dispatches": disp_want}
+        log(f"builtins {name}: rows == host twin == reference ({len(want)} "
+            f"rows, sha256 {got_ref['sha256'][:16]}...; route {route}"
+            + (f", {reason}" if reason else "") + f"); warm median "
+            f"{out[name]['card_ms']:.3f} ms on {copr.device}, host twin "
+            f"{host_ms[1]:.3f} ms ({card})")
+    if not checked_calls:
+        fail("builtins: no kernel call was held to its plain version")
+    out["checked"] = checked_calls
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 # ---- vector search (ROADMAP A.8) ----------------------------------------
 # The corpus has ann-benchmarks' sift-128-euclidean shape (SIFT1M: 10^6
 # rows of 128 float dimensions) as a seeded mixture of Gaussians, as
 # scripts/vector_smoke.py makes its own: centers * 4, noise 0.35, about
 # 244 rows per center (vector_smoke: 195), 4 decimals of text per value.
 # 10^6 rows cut to 500,000 (PERF.md section 4: the whole run passed 900 s
-# with the cluster phase), about 122 rows per center.
-VEC_ROWS, VEC_DIM, VEC_CENTERS, VEC_BLOCK = 500_000, 128, 4096, 1 << 16
+# with the cluster phase), then to 250,000 (it passed 1,200 s on a slow
+# host), about 61 rows per center.
+VEC_ROWS, VEC_DIM, VEC_CENTERS, VEC_BLOCK = 250_000, 128, 4096, 1 << 16
 VEC_EDGE_ROWS, VEC_DUPS, VEC_NULLS = 1 << 16, 30, 3
 VEC_K, VEC_QUERIES, VEC_INSERTS = 10, 20, 5
 VEC_RECALL = 0.95
@@ -2015,7 +2160,8 @@ MPP_CASES = (("q1", "dense_group_sums", "passthrough", None, True),
              ("q12", "dense_group_sums", "passthrough", None, True),
              ("grouped", None, "passthrough", None, False),
              ("shuffle", None, "hash", 1_000_000, False),
-             ("skew", None, "hash", SKEW_DIM_ROWS - 1, False))
+             ("skew", None, "hash", SKEW_DIM_ROWS - 1, False),
+             ("builtins_math", None, "passthrough", None, False))
 # the reference's EXPLAIN of Q3 with tidb_enable_mpp on (tidb_tpu on 8
 # virtual devices; estRows left out, they depend on the scale): id, info
 MPP_Q3_EXPLAIN = (
@@ -2079,6 +2225,10 @@ def mpp_sql(tk, exp, name):
         return MPP_SHUFFLE, None
     if name == "skew":
         return MPP_SKEW, None
+    if name == "builtins_math":
+        from tidb_tpu_torch.bench import tpch
+        return dict((c[0], c[1]) for c in tpch.BUILTIN_CASES)[
+            "math_lineitem"], None
     return sql_and_rows(tk, exp, name)
 
 
@@ -2391,13 +2541,17 @@ def phase_wire(tk, exp, nparts, testkit_meds):
 # These phases write, so they run after every phase that holds the SF1
 # tables to the reference's committed rows.
 
-TPCH_TABLES = ("region", "nation", "supplier", "customer", "part",
-               "partsupp", "orders", "lineitem")
+# the SF1 tables BACKUP and both RESTOREs carry: those the restored
+# statements read (Q1, Q3, Q6, Q13) and the HTAP writes change. The other
+# five (part, partsupp, supplier, nation, region: 1,010,030 rows) are
+# dropped before the backup (PERF.md section 4: the whole run passed
+# 1,200 s on a slow host)
+BR_TABLES = ("customer", "orders", "lineitem")
 # TPC-H's refresh functions (spec 2.5): RF1 inserts SF x 1,500 new orders
 # with their 1 to 7 lineitems, RF2 deletes SF x 1,500 old orders and
 # theirs; the writers run RF_ROUNDS pairs, RF_BATCH rows an INSERT
 RF_ORDERS = 1500
-RF_ROUNDS = 6
+RF_ROUNDS = 5
 RF_BATCH = 500
 # the replica phase's DML-written table (scripts/replica_smoke.py's shape:
 # lines(id, k, v, s)) with k in 0..62: 63 keys and the NULL slot fill
@@ -2566,13 +2720,13 @@ def rf2_statements(lo):
 
 
 def phase_br_snapshot(tk, tmp):
-    """BACKUP DATABASE test over the SF1 tables (the tables earlier
-    phases added are dropped first), with a logbackup:// changefeed
+    """BACKUP DATABASE test over the SF1 tables of BR_TABLES (every
+    other table is dropped first), with a logbackup:// changefeed
     armed before it and kept running through the HTAP writes. -> the
     backup's record."""
     dom = tk.domain
     for t in dom.infoschema().tables_in_schema("test"):
-        if t.name not in TPCH_TABLES:
+        if t.name not in BR_TABLES:
             tk.must_exec(f"drop table `{t.name}`")
     snap = os.path.join(tmp, "snap")
     feed = dom.cdc.create(
@@ -2585,8 +2739,8 @@ def phase_br_snapshot(tk, tmp):
         man = json.load(f)
     rows = {e["table"]["name"]: sum(c["rows"] for c in e["chunks"])
             for e in man["tables"]}
-    want = {t: table_rows(tk, t) for t in TPCH_TABLES}
-    if n != len(TPCH_TABLES) or rows != want:
+    want = {t: table_rows(tk, t) for t in BR_TABLES}
+    if n != len(BR_TABLES) or rows != want:
         fail(f"backup: {n} tables, rows {rows}; expected {want}")
     nbytes = sum(c["bytes"] for e in man["tables"] for c in e["chunks"])
     log(f"br backup: {sum(rows.values())} rows of {n} tables in {secs:.1f} "
@@ -2594,7 +2748,7 @@ def phase_br_snapshot(tk, tmp):
         f"{sum(len(e['chunks']) for e in man['tables'])} chunks; "
         f"backup_ts {man['backup_ts']}; logbackup:// feed armed")
     ids = {t: dom.infoschema().table_by_name("test", t).id
-           for t in TPCH_TABLES}
+           for t in BR_TABLES}
     return {"path": snap, "feed": feed, "backup_s": secs,
             "backup_bytes": nbytes, "rows": sum(rows.values()),
             "backup_ts": man["backup_ts"], "table_ids": ids}
@@ -3201,7 +3355,7 @@ def phase_br_restore(tk, br, exp, htap, card, device=None):
         if n != br["rows"]:
             fail(f"restore: {n} rows, backup holds {br['rows']}")
         ids = {t: tkr.domain.infoschema().table_by_name("test", t).id
-               for t in TPCH_TABLES}
+               for t in BR_TABLES}
         if ids != br["table_ids"]:
             fail(f"restore: table ids {ids} != the backup's")
         for q in ("q1", "q3", "q6", "q13"):
@@ -3235,7 +3389,7 @@ def phase_br_restore(tk, br, exp, htap, card, device=None):
         out["pitr_s"] = time.perf_counter() - t0
         tkr.must_exec("use test")
         if {t: tkr.domain.infoschema().table_by_name("test", t).id
-                for t in TPCH_TABLES} != ids:
+                for t in BR_TABLES} != ids:
             fail("drop + restore: the table ids changed")
         m0 = tkr.domain.metrics.get("fused_matdim_build", 0)
         phase.reset()
@@ -3917,6 +4071,9 @@ def main():
     with open(os.path.join(ROOT, "tidb_tpu_torch", "bench",
                            "executor_sf1_expected.json")) as f:
         exp_exec = json.load(f)
+    with open(os.path.join(ROOT, "tidb_tpu_torch", "bench",
+                           "builtins_sf1_expected.json")) as f:
+        exp_builtins = json.load(f)
     t0 = time.perf_counter()
     tk = TestKit()                      # the card is the default device
     if tk.domain.copr.device.type != "cuda":
@@ -3969,6 +4126,11 @@ def main():
             tk, exp_exec, guard, card), folds=False, kernels=())
         log(f"executor phase {time.perf_counter() - t0:.1f} s; "
             f"{json.dumps(exec_ms)}")
+        builtins = counted("builtins", lambda: phase_builtins(
+            tk, exp_builtins, guard, card), folds=False,
+            kernels=("dense_group_sums",))
+        log(f"builtins phase {builtins['seconds']:.1f} s; "
+            f"{json.dumps(builtins)}")
         t0 = time.perf_counter()
         vec = counted("vector", lambda: phase_vector(tk, guard, card),
                       folds=False, kernels=())
@@ -4055,6 +4217,7 @@ def main():
                       "card": card}), flush=True)
     print(json.dumps({"programs": vec["programs"] + ml["programs"],
                       "card": card}), flush=True)
+    print(json.dumps({"builtins": builtins, "card": card}), flush=True)
     log(f"card: {card}")
     log(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

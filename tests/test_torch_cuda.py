@@ -928,3 +928,36 @@ def test_cluster_over_nccl_one_card_per_worker(tmp_path):
                 except subprocess.TimeoutExpired:
                     p.kill()
                     p.wait(timeout=30)
+
+
+def test_builtin_device_forms_on_card():
+    """Every case of tests/torch_builtin_cases.py whose shape the device
+    rule admits: the port's device form over CUDA tensors, evaluated
+    under set_sync_debug_mode("error") (a read of a value on the host
+    raises), == the reference's numpy result committed in
+    tests/torch_builtin_expected.json, which the CPU tests hold to the
+    reference (ints, decimals, uint64 bits at and above 2^63, NULL masks
+    exactly; float64 to rtol 1e-9; strings as text). The cases shift by
+    -1, 63, 64 and more."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_builtin_cases as T
+    from tidb_tpu_torch.expression.torch_ns import TorchNS, device_form
+    P = T.PORT
+    ran = 0
+    for name in sorted(T.CASES):
+        expr = T.port_expr(name)
+        if device_form(expr, T.masked_cols()) is not None:
+            continue
+        want = T.expected(name)
+        cols = T.port_cols("cuda")
+        torch.cuda.synchronize()
+        ctx = P.EvalCtx(TorchNS("cuda"), T.N, cols, host=False)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            val = P.eval_expr(ctx, expr)
+            nulls = P.nulls(ctx, val[1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        T.assert_same(name, T.normalize(val, nulls), want)
+        ran += 1
+    assert ran > 300, ran

@@ -1,4 +1,4 @@
-"""The evaluator ops the fused dimension queries added to TORCH_OPS (IN,
+"""The evaluator ops the fused dimension queries put on the device (IN,
 CASE, LIKE, SUBSTRING: TPC-H Q12, Q14, Q19, Q22; IF, IFNULL, COALESCE:
 the LEFT materialized dims of Q13 and Q21) on the port's torch
 namespace against the reference's numpy EvalCtx, as in
@@ -164,10 +164,9 @@ def _decoded(d, sd, live):
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_torch_op_matches_numpy(name):
-    from tidb_tpu_torch.expression.torch_ns import TorchNS, ops_of, \
-        TORCH_OPS
+    from tidb_tpu_torch.expression.torch_ns import TorchNS, device_form
     ref_e, port_e = CASES[name](REF), CASES[name](PORT)
-    assert ops_of(port_e) <= TORCH_OPS, ops_of(port_e) - TORCH_OPS
+    assert device_form(port_e) is None, device_form(port_e)
     ref_ctx = REF.EvalCtx(np, N, _cols(REF, False), host=True)
     port_ctx = PORT.EvalCtx(TorchNS("cpu"), N, _cols(PORT, True),
                             host=False)
@@ -223,15 +222,14 @@ def _predict_expr(root, P):
 
 
 def test_torch_predict_matches_numpy():
-    """predict() (in TORCH_OPS) over an int, a decimal(15,2) and a
+    """predict() (a device form) over an int, a decimal(15,2) and a
     NULL-bearing column: values within rtol 1e-5 of the numpy EvalCtx's
     (float32 products on both sides), NULL masks exact, and
     `predict(...) > 0` equal away from a zero score."""
-    from tidb_tpu_torch.expression.torch_ns import TorchNS, ops_of, \
-        TORCH_OPS
+    from tidb_tpu_torch.expression.torch_ns import TorchNS, device_form
     ref_e, port_e = _predict_expr("tidb_tpu", REF), \
         _predict_expr("tidb_tpu_torch", PORT)
-    assert ops_of(port_e) <= TORCH_OPS
+    assert device_form(port_e) is None, device_form(port_e)
     ref_ctx = REF.EvalCtx(np, N, _cols(REF, False), host=True)
     port_ctx = PORT.EvalCtx(TorchNS("cpu"), N, _cols(PORT, True),
                             host=False)

@@ -9,9 +9,10 @@ jax or tidb_tpu.
 
 Every entry point runs on the CUDA device unless the caller asks for
 the CPU (`new_store(device="cpu")`, `TestKit(device="cpu")`, `--cpu`).
-The MySQL wire server (`--serve`) answers from the card. Surfaces not
-ported yet (vector search, in-SQL inference, the replica fabric, MPP,
-BR) fail with a "not yet ported" error.
+The MySQL wire server (`--serve`) answers from the card. The evaluator
+runs on the card every function the reference runs on its device; a
+shape whose device form would read values on the host runs on the host
+twin, by the rule in expression/torch_ns.py (device_form).
 """
 
 __version__ = "0.1.0"

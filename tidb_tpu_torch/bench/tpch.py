@@ -867,3 +867,84 @@ def rows_digest(rows) -> str:
     separated by tabs."""
     text = "\n".join("\t".join(r) for r in rows)
     return hashlib.sha256(text.encode()).hexdigest()
+
+
+# ---- the evaluator's builtin functions over the TPC-H tables -------------
+# One or two statements per family of device functions (math, casts,
+# dates, strings, JSON text made with CONCAT over a dictionary column,
+# bits over BIGINT UNSIGNED values at and above 2^63, NULL logic), and a
+# shape whose device form reads the host (CAST of an int to CHAR), which
+# the device rule declines before dispatch: (name, SQL, route, reason).
+# route "fused": the statement is one zero-dim fused pipeline on the
+# card, "declined": declined by the rule with `reason`. Every
+# value a statement returns is an integer, a decimal, a date or a
+# string, so its rows are compared by rows_digest
+# (tidb_tpu_torch/bench/builtins_sf1_expected.json).
+BUILTIN_CASES = (
+    ("math_lineitem", "select l_returnflag, l_linestatus, count(*), "
+     "sum(round(l_extendedprice * (1 - l_discount), 1)), "
+     "sum(floor(sqrt(l_quantity))), sum(abs(l_tax - 0.05)), "
+     "sum(truncate(l_extendedprice, -2)), sum(ceil(l_discount * 10)), "
+     "sum(sign(l_tax - 0.04)) from lineitem where ln(l_quantity) > 1 and "
+     "pow(l_discount, 2) < 0.0065 and degrees(atan(l_tax)) >= 0 group by "
+     "l_returnflag, l_linestatus order by l_returnflag, l_linestatus",
+     "fused", None),
+    ("casts_orders", "select o_orderstatus, count(*), "
+     "sum(cast(o_totalprice as signed)), "
+     "sum(cast(o_custkey as decimal(12,2))), "
+     "sum(cast(o_shippriority + o_custkey as double)), "
+     "max(cast(o_orderdate as datetime)) from orders where "
+     "cast(substring(o_clerk, 7) as signed) < 500 and "
+     "cast(o_orderpriority as char) like '%URGENT' group by o_orderstatus "
+     "order by o_orderstatus", "fused", None),
+    ("dates_orders", "select quarter(o_orderdate), year(o_orderdate), "
+     "count(*), sum(datediff('1998-12-31', o_orderdate)), "
+     "max(dayofweek(o_orderdate)), min(week(o_orderdate)), "
+     "sum(to_days(o_orderdate)), max(last_day(o_orderdate)), "
+     "sum(yearweek(o_orderdate) % 100) from orders where "
+     "dayofyear(o_orderdate) between 40 and 300 and weekday(o_orderdate) "
+     "< 5 group by quarter(o_orderdate), year(o_orderdate) order by 1, 2",
+     "fused", None),
+    ("dates_lineitem", "select l_shipmode, count(*), "
+     "sum(datediff(l_receiptdate, l_shipdate)), "
+     "sum(timestampdiff(day, l_commitdate, l_receiptdate)), "
+     "min(timestampadd(month, 1, l_shipdate)), "
+     "sum(unix_timestamp(l_shipdate) div 86400) from lineitem where "
+     "month(l_shipdate) = 3 and makedate(year(l_shipdate), 60) <= "
+     "l_shipdate group by l_shipmode order by l_shipmode", "fused", None),
+    ("strings_customer", "select upper(c_mktsegment), count(*), "
+     "sum(length(c_name)), max(crc32(c_phone)), "
+     "sum(locate('9', c_phone)), max(md5(c_mktsegment)) from customer "
+     "where left(c_phone, 2) between '10' and '20' and "
+     "reverse(c_mktsegment) not like 'E%' or instr(c_address, 'xy') > 0 "
+     "group by upper(c_mktsegment) order by 1", "fused", None),
+    ("strings_part", "select lower(p_brand), count(*), "
+     "sum(char_length(trim(p_type))), max(concat('<', trim(p_container), "
+     "'>')), sum(crc32(hex(p_mfgr)) % 1000) from part where "
+     "instr(p_name, 'green') > 0 and right(p_type, 5) = 'BRASS' and "
+     "char_length(lpad(p_container, 12, '*')) = 12 group by "
+     "lower(p_brand) order by 1", "fused", None),
+    ("json_orders", "select json_unquote(json_extract(concat('{\"p\": "
+     "\"', o_orderpriority, '\", \"n\": [1, 2]}'), '$.p')), count(*), "
+     "sum(json_valid(concat('{\"s\": \"', o_orderstatus, '\"}'))), "
+     "sum(json_length(concat('[\"', o_orderstatus, '\", 7]'))) "
+     "from orders group by 1 order by 1", "fused", None),
+    ("bits_orders", "select o_orderstatus, count(*), "
+     "sum(bit_count(o_orderkey)), sum(o_orderkey & 255), "
+     "sum((o_custkey | 1024) ^ 7), sum(o_orderkey >> 3), "
+     "sum(bit_count(~o_custkey)), sum(bit_count(o_orderkey << 62)) from "
+     "orders where (o_orderkey << 62) < 4611686018427387905 and "
+     "cast(o_custkey - 3000 as unsigned) > 100 "
+     "group by o_orderstatus order by o_orderstatus", "fused", None),
+    ("null_logic_orders", "select o_orderpriority, count(*), "
+     "sum(nullif(o_custkey % 7, 0)), sum(greatest(o_custkey, o_orderkey "
+     "% 150000)), sum(nullif(o_custkey % 7, 0) <=> 3), "
+     "sum(least(o_totalprice, 1000)), sum(interval(o_custkey, 1000, "
+     "50000, 100000)), sum((o_totalprice > 100000) is true), "
+     "sum(if(o_custkey % 5 = 0, null, 1) is not true) from orders group by "
+     "o_orderpriority order by o_orderpriority", "fused", None),
+    ("declined_cast_char", "select c_mktsegment, count(*) from customer "
+     "where cast(c_custkey as char) like '%77' group by c_mktsegment "
+     "order by c_mktsegment", "declined",
+     "host-bound shape: cast_char of int"),
+)

@@ -44,7 +44,8 @@ slot domain the scatter.
 A reader DAG (a scan outside a fused node: a filter, a top-n, a
 partition aggregation, or a materialized dim's subplan scan) is routed
 as the reference routes it (_execute_inner): virtual tables, DAGs whose
-expressions or column types have no device form (_dag_device_ready)
+expressions or column types have no device form (_dag_decline;
+a shape the device rule declines counts copr_host_bound)
 and pure scans take the numpy host twin (copr_host_exec); a filter-only
 or top-n-only DAG under tidb_tpu_fragment_min_rows rows does too
 (copr_fragment_gated); every other DAG runs one fragment call per
@@ -85,7 +86,8 @@ from ..expression import EvalCtx, eval_expr, eval_bool_mask
 from ..expression.expr import Column as ExprColumn, ScalarFunc
 from ..expression import vec as _vec
 from ..expression.vec import materialize_nulls, mul_is_plain_int64
-from ..expression.torch_ns import TORCH_OPS, TorchNS, ops_of, torch_dtype
+from ..expression.torch_ns import (Decline, TorchNS, device_form,
+                                    torch_dtype)
 from ..utils import env_int
 from ..utils.fetch import prefetch, host_array, host_int
 from .residency import DeviceResidentStore
@@ -171,6 +173,9 @@ class CoprExecutor:
         self.xp = TorchNS(self.device)
         self._kernel_cache = _KernelCache()
         self.last_backend = ""          # backend of the latest execute()
+        # the device rule's reason when it sent the latest reader DAG to
+        # the host (torch_ns.device_form)
+        self.last_host_reason = None
         # device-resident columnar store: column buffers stay in device
         # memory across statements, keyed by (table, ..., version, ...)
         # and eagerly invalidated when a DML commit bumps the version
@@ -346,8 +351,19 @@ class CoprExecutor:
                                       if len(handles) + len(self._overlay_handles) != n
                                       else handles,
                                       self._overlay_handles])
+        decline = None
+        if self.use_device and dag.table_info.id > -1000:
+            decline = _dag_decline(dag, arrays, self._cid)
+            if decline is not None and decline.kind == "host_bound":
+                # the reference's route for this shape: its trace reads
+                # the host, and the fragment runs on the host twin
+                self.last_host_reason = decline.reason
+                _metrics.FRAGMENT_ROUTING.labels("host_bound").inc()
+                dom = getattr(self, "domain", None)
+                if dom is not None:
+                    dom.inc_metric("copr_host_bound")
         if not self.use_device or dag.table_info.id <= -1000 or \
-                not _dag_device_ready(dag, arrays):
+                decline is not None:
             if dag.table_info.id > -1000:
                 self._bump("copr_host_exec")
             return self._execute_host(dag, tbl, arrays, valid, n, handles)
@@ -1076,7 +1092,8 @@ def run_fragment(kern, *args):
 
 
 def _device_dtype_ok(dtype) -> bool:
-    """Does a storage dtype have a device form (not object, not uint64)?"""
+    """Does a storage dtype have a device form (not object)? uint64
+    rides as its int64 bit patterns."""
     try:
         torch_dtype(dtype)
     except TypeError:
@@ -1084,28 +1101,31 @@ def _device_dtype_ok(dtype) -> bool:
     return True
 
 
-def _dag_device_ready(dag, arrays) -> bool:
-    """Can the DAG's fragment run on the device: every expression it
-    evaluates there is device-safe (vec.is_device_safe) and uses only
-    the evaluator ops whose torch forms are checked (TORCH_OPS), and
-    every column it binds has a device dtype."""
+def _dag_decline(dag, arrays, cid_of):
+    """Why the DAG's fragment cannot run on the device (a torch_ns.
+    Decline), or None when it can: every expression it evaluates there
+    passes the device rule (torch_ns.device_form, with the NULL masks
+    the columns are bound with), and every column it binds has a device
+    dtype."""
     exprs = [sc.col for sc in dag.cols] + list(dag.filters) + \
         list(dag.group_items)
     for a in dag.aggs:
         exprs.extend(a.args)
     if dag.topn is not None:
         exprs.append(dag.topn[0][0])
-    if not all(_vec.is_device_safe(e) for e in exprs):
-        return False
-    used = set()
+    masked = set()
+    for sc in dag.cols:
+        ent = arrays.get(cid_of(dag, sc))
+        if ent is not None and ent[1] is not None:
+            masked.add(sc.col.idx)
     for e in exprs:
-        ops_of(e, used)
-    if not used <= TORCH_OPS:
-        return False
+        decline = device_form(e, masked.__contains__)
+        if decline is not None:
+            return decline
     for data, _nulls, _sd in arrays.values():
         if not _device_dtype_ok(data.dtype):
-            return False
-    return True
+            return Decline("unsafe", f"no device dtype: {data.dtype}")
+    return None
 
 
 def _reader_fragment(filters, sdicts, cap, xp, tail):
@@ -1385,6 +1405,9 @@ def _agg_eval_rows(ctx, a, mask, cap):
         d, nl, _ = eval_expr(ctx, a.args[0])
         if np.isscalar(d) or getattr(d, "ndim", 1) == 0:
             d = ctx.xp.full(cap, d)
+        if d.dtype == torch.bool:
+            # SUM(a = b) counts: a scatter-add in bool would OR
+            d = d.to(INT64)
         nm = materialize_nulls(ctx, nl)
         return d, mask & ~nm
     return torch.ones(cap, dtype=INT64, device=ctx.xp.device), mask
@@ -1952,6 +1975,10 @@ def _host_partial_agg(ctx, dag, valid, shared_dicts=None):
                 d = np.full(ctx.n, d)
             nm = np.asarray(materialize_nulls(ctx, nl))
             dv = np.asarray(d)[idx]
+            if dv.dtype == bool:
+                # SUM(a = b) counts (an add of bools would OR), as on the
+                # device
+                dv = dv.astype(np.int64)
             ok = ~nm[idx]
         else:
             dv = np.ones(len(idx), dtype=np.int64)

@@ -12,7 +12,7 @@ and partition i+1 is dispatched before partition i is consumed.
 
 A fragment runs, in order:
 
-  fact filters        evaluator ops of expression/torch_ns.TORCH_OPS
+  fact filters        evaluator ops (expression/torch_ns.device_form)
   dimension probes    per dim: its filters over the resident dim
                       columns, then the probe of its build-key table —
                       one gather into a dense position table ("direct",
@@ -57,12 +57,12 @@ result is cached across statements in a byte-bounded LRU, valid while
 its base tables are unchanged, so a warm statement runs no subplan and
 uploads nothing.
 
-Not yet ported, declined before dispatch with last_fused_reason "not yet
-ported: ..." so the executor takes its counted host path: device ops
-outside TORCH_OPS. The reference's one-hot aggregation, its device top-N
+A shape the device rule (expression/torch_ns.device_form) sends to the
+host, as the reference's failed trace does, is declined before dispatch
+with last_fused_reason "host-bound shape: ..." so the executor takes its
+counted host path. The reference's one-hot aggregation, its device top-N
 candidate selection and its early compaction of fact-filter survivors
-(ecap) are learned speed-ups that give the same rows and are not ported
-either.
+(ecap) are learned speed-ups that give the same rows and are not ported.
 
 With a mesh (the planner's fragment_plan flagged the pipeline mpp, and
 the executor found tidb_enable_mpp on and two or more shards), the
@@ -90,7 +90,7 @@ import torch
 from ..expression import EvalCtx, eval_expr, eval_bool_mask
 from ..expression.expr import Column as ExprColumn
 from ..expression.vec import materialize_nulls
-from ..expression.torch_ns import TORCH_OPS, ops_of
+from ..expression.torch_ns import device_form
 from ..chunk.device import shape_bucket
 from ..utils.torchcfg import INT64
 from . import dag_exec as _de
@@ -998,14 +998,15 @@ def _make_pipeline_body(plan, fact_cap, fact_sdicts, dim_caps, dim_ns,
     return body
 
 
-def _decline_reason(plan):
-    """-> why this plan's shape is not ported to the device yet, or None
-    when it is: evaluator ops checked under torch in the fact filters,
-    the dims' filters and probe keys, the post filters, the group items
-    and the aggregate arguments. Every group domain has a layout (dense,
-    posdense or the sort kind, chosen at run time in
-    _fused_partials_inner). A materialized dim's subplan is checked by
-    its own operators when it runs."""
+def _decline_reason(plan, nullable=None):
+    """-> why this plan's shape does not run on the device, or None when
+    it does: the device rule (torch_ns.device_form) over the fact
+    filters, the dims' filters and probe keys, the post filters, the
+    group items and the aggregate arguments; `nullable(col_idx)` says
+    whether a column may be bound with a NULL mask. Every group domain
+    has a layout (dense, posdense or the sort kind, chosen at run time
+    in _fused_partials_inner). A materialized dim's subplan is checked
+    by its own operators when it runs."""
     exprs = list(plan.fact_dag.filters) + list(plan.post_filters) + \
         list(plan.group_items)
     for a in plan.aggs:
@@ -1015,13 +1016,27 @@ def _decline_reason(plan):
         if d.join_type not in ("semi", "anti") or d.extra_keys:
             # a prefiltered semi/anti dim folds its filters on the host
             exprs.extend(d.dag.filters)
-    used = set()
     for e in exprs:
-        ops_of(e, used)
-    missing = sorted(used - TORCH_OPS)
-    if missing:
-        return "not yet ported: device ops " + ",".join(missing)
+        decline = device_form(e, nullable)
+        if decline is not None:
+            return decline.reason
     return None
+
+
+def _fact_nullable(plan, fact_tbl):
+    """nullable(col_idx) for the device rule: a fact column is bound
+    with a NULL mask when the table holds a NULL in it (the snapshot
+    drops an all-false mask); any other column may be."""
+    names = {sc.col.idx: sc.name for sc in plan.fact_dag.cols}
+    n = fact_tbl.n
+
+    def nullable(idx):
+        if idx not in names:
+            return True
+        ci = fact_tbl.table_info.find_column(names[idx])
+        nl = None if ci is None else fact_tbl.nulls.get(ci.id)
+        return nl is not None and bool(nl[:n].any())
+    return nullable
 
 
 def _delta_partition(plan, fact_tbl, fact_arrays, delta_rows):
@@ -1132,12 +1147,12 @@ def fused_partials(copr, plan, read_ts, mesh=None,
 def _fused_partials_inner(copr, plan, read_ts, mesh=None,
                           bcast_threshold=1 << 20, ctx=None,
                           delta_rows=None, dead_handles=None):
-    reason = _decline_reason(plan)
+    engine = copr.engine
+    fact_tbl = engine.table(plan.fact_dag.table_info)
+    reason = _decline_reason(plan, _fact_nullable(plan, fact_tbl))
     if reason is not None:
         _set_reason(copr, reason)
         return None
-    engine = copr.engine
-    fact_tbl = engine.table(plan.fact_dag.table_info)
     # incremental HTAP: fold committed deltas into resident buffers
     # FIRST (patched entries advance their version and survive), then
     # sweep what stayed stale — copr/delta.py

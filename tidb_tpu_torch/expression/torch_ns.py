@@ -1,4 +1,5 @@
-"""A numpy-shaped array namespace over torch, for EvalCtx(xp=...).
+"""A numpy-shaped array namespace over torch, for EvalCtx(xp=...), and
+the rule that says which expressions run on the device.
 
 The evaluator (expression/vec.py) is written once against an array
 namespace: numpy on the host, and in tidb_tpu jax.numpy on the device.
@@ -12,18 +13,30 @@ numpy and torch differ where it matters here:
   to its default float32; numpy gives float64. Every function below
   that can produce floats from ints names float64.
 - numpy's searchsorted side="left"/"right" is torch's right=False/True.
-- uint64 has few torch ops (fewer on CUDA); the evaluator's uint64 bit
-  tricks are not on the port's device path (ops outside TORCH_OPS run
-  on the host), and asking for uint64 here raises.
-- tensors have no `.astype`; the evaluator's `.astype` sites belong to
-  ops outside TORCH_OPS (casts, string and vector functions, bit
-  tricks), which a later slice ports with the op.
+- uint64 has few torch ops (fewer on CUDA). The evaluator's unsigned
+  values are int64 bit patterns on both backends (storage keeps BIGINT
+  UNSIGNED so), and its uint64 bit tricks (BIT_COUNT's popcount) run
+  here on those int64 bits: xp.uint64 is the marker _UINT64_BITS, a
+  numpy uint64 array uploads as its int64 view, and bitwise ops are
+  bit-identical.
+- shifts by 64 or more, or by a negative count, are undefined in C;
+  left_shift / right_shift give numpy's (and XLA's) answers: 0, or the
+  sign fill for a right shift.
+- tensors have no `.astype`; the evaluator calls xp.astype on them.
 
-TORCH_OPS lists the evaluator ops whose device forms were checked
-against the numpy EvalCtx (tests/test_torch_expression.py); a fragment
-whose expressions use any other op is declined before dispatch and
-runs on the host."""
+Every evaluator op that the reference lets into a device fragment
+(vec._REGISTRY less _HOST_ONLY, as vec.is_device_safe says) has its
+device form here, predict() too. device_form(expr) is the rule a
+fragment passes before dispatch: every op has a device form, and no op
+meets a shape whose device form reads values on the host (a number
+made into text row by row, several dictionary columns concatenated,
+QUOTE over a value that may be NULL, UNIX_TIMESTAMP of text). Those shapes are exactly the ones
+whose trace fails in the reference, which then runs the fragment on the
+host; here they are declined before dispatch, with the reason
+"host-bound shape: <op> of <argument>", and run on the host twin."""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,29 +52,23 @@ _NP_TO_TORCH = {
     np.dtype(np.uint8): torch.uint8,
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
+    # unsigned 64-bit values ride as their int64 bit patterns
+    np.dtype(np.uint64): torch.int64,
 }
 
-# evaluator ops (vec.py @op names) whose torch forms are checked
-# against the numpy EvalCtx; see the module docstring
-TORCH_OPS = frozenset({
-    "+", "-", "*", "/", "div", "%", "mod", "unary-",
-    "=", "!=", "<", "<=", ">", ">=",
-    "and", "or", "xor", "not", "isnull", "isnotnull",
-    "year", "month", "day", "dayofmonth",
-    "date_add", "date_sub", "adddate", "subdate",
-    # string and conditional ops: dict-coded strings evaluate as a host
-    # table over the dictionary gathered by code (like, substring, IN of
-    # strings), numbers as compares (IN), CASE as nested wheres
-    "in", "case_when", "like", "substring",
-    # NULL-replacing conditionals (Q13's and Q21's LEFT materialized
-    # dims probe to ifnull(count, 0)): wheres over the NULL masks
-    "if", "ifnull", "coalesce",
-    # the planner's rank recode around MIN/MAX of a string: a gather
-    "_minmaxkey",
-    # in-SQL inference (ml/lowering.py): a float32 matmul chain over
-    # the model's resident weights
-    "predict",
-})
+class _UInt64Bits:
+    """xp.uint64 of TorchNS: unsigned 64-bit values carried as their
+    int64 bit patterns. Called on a number it gives the python int with
+    the same 64 bits; as a dtype it is torch.int64."""
+
+    def __call__(self, v):
+        return ((int(v) + (1 << 63)) % (1 << 64)) - (1 << 63)
+
+    def __repr__(self):
+        return "uint64 (as int64 bits)"
+
+
+_UINT64_BITS = _UInt64Bits()
 
 
 def torch_dtype(dtype):
@@ -74,12 +81,14 @@ def torch_dtype(dtype):
         return torch.int64
     if dtype is float:
         return torch.float64
+    if dtype is _UINT64_BITS:
+        return torch.int64
     nd = np.dtype(dtype)
     td = _NP_TO_TORCH.get(nd)
     if td is None:
         raise TypeError(
             f"dtype {nd} has no device form in tidb_tpu_torch "
-            "(uint64 and object columns run on the host)")
+            "(object columns run on the host)")
     return td
 
 
@@ -105,10 +114,7 @@ class TorchNS:
     def __repr__(self):
         return f"TorchNS({self.device})"
 
-    @property
-    def uint64(self):
-        raise TypeError("uint64 arithmetic is not on tidb_tpu_torch's "
-                        "device path")
+    uint64 = _UINT64_BITS
 
     # ---- construction ------------------------------------------------
     def asarray(self, x, dtype=None):
@@ -125,11 +131,16 @@ class TorchNS:
         if isinstance(x, np.generic):
             if x.dtype == object:
                 raise TypeError("object arrays have no device form")
-            return torch.full((), x.item(), dtype=td or torch_dtype(x.dtype),
+            v = x.item()
+            if x.dtype == np.uint64:
+                v = _UINT64_BITS(v)
+            return torch.full((), v, dtype=td or torch_dtype(x.dtype),
                               device=self.device)
         if isinstance(x, np.ndarray):
             if x.dtype == object:
                 raise TypeError("object arrays have no device form")
+            if x.dtype == np.uint64:
+                x = x.view(np.int64)
             t = upload(x, self.device)
             return t if td is None or t.dtype == td else t.to(td)
         if isinstance(x, bool):
@@ -217,7 +228,10 @@ class TorchNS:
         return torch.abs(self.asarray(a))
 
     def sign(self, a):
-        return torch.sign(self.asarray(a))
+        a = self.asarray(a)
+        s = torch.sign(a)
+        # numpy's sign of NaN is NaN (torch's is 0)
+        return torch.where(torch.isnan(a), a, s) if _is_float(a) else s
 
     def _f(self, a):
         a = self.asarray(a)
@@ -250,6 +264,12 @@ class TorchNS:
     def log(self, a):
         return torch.log(self._f(a))
 
+    def log2(self, a):
+        return torch.log2(self._f(a))
+
+    def log10(self, a):
+        return torch.log10(self._f(a))
+
     def sin(self, a):
         return torch.sin(self._f(a))
 
@@ -280,6 +300,27 @@ class TorchNS:
     def isnan(self, a):
         return torch.isnan(self._f(a))
 
+    # ---- dtypes and bits ---------------------------------------------
+    def astype(self, a, dtype):
+        """numpy's a.astype(dtype) (tensors have no .astype)."""
+        return self.asarray(a, dtype=dtype)
+
+    def left_shift(self, a, b):
+        """numpy's left_shift of int64 values: 0 where the count is
+        negative or 64 and more (C and CUDA leave those undefined)."""
+        a, b = self._pair(a, b)
+        ok = (b >= 0) & (b < 64)
+        return torch.where(ok, a << torch.where(ok, b, 0),
+                           torch.zeros((), dtype=a.dtype,
+                                       device=self.device))
+
+    def right_shift(self, a, b):
+        """numpy's arithmetic right_shift of int64 values: the sign
+        fill (0 or -1) where the count is negative or 64 and more."""
+        a, b = self._pair(a, b)
+        ok = (b >= 0) & (b < 64)
+        return torch.where(ok, a >> torch.where(ok, b, 0), a >> 63)
+
     # ---- lookups -----------------------------------------------------
     def isin(self, a, table):
         return torch.isin(self.asarray(a), self.asarray(table))
@@ -309,3 +350,123 @@ def ops_of(expr, out=None) -> set:
         for a in expr.args:
             ops_of(a, out)
     return out
+
+
+# ---- the device rule ------------------------------------------------------
+
+# ops whose device form makes text of a number row by row on the host
+# (vec._to_str_val, _int_to_str_col, cast_char's loop): a number held
+# on the device cannot reach them
+_TEXT_OF_NUMBER = {"cast_char": (0,), "bin": (0,), "oct": (0,),
+                   "format": (0,), "json_extract": (0,), "quote": (0,)}
+# ops that, over python constants alone, stay python values (their
+# bodies run python on constants); every other op makes a device array
+_PY_ON_CONSTANTS = {"pi", "char", "space", "elt", "concat", "cast_char",
+                    "bin", "oct", "format", "hex", "conv"}
+# ops whose NULL mask never carries a NULL of an argument, and ops whose
+# mask is exactly their arguments' (every other op may make NULLs of its
+# own: x / 0, SQRT of a negative, NULLIF, an unparsable date ...)
+_NEVER_NULL = {"isnull", "isnotnull", "<=>", "istrue", "isfalse", "field"}
+_NULL_OF_ARGS = {"+", "-", "*", "unary-", "abs", "=", "!=", "<", "<=", ">",
+                 ">=", "lower", "lcase", "upper", "ucase", "concat", "char",
+                 "space", "pi"}
+
+
+def _ANY_NULL(_idx):
+    return True
+
+
+class _HostBound(Exception):
+    pass
+
+
+class Decline(NamedTuple):
+    """Why a fragment does not run on the device: kind "unsafe" (an op
+    or a decimal with no device form: vec.is_device_safe is false) or
+    "host_bound" (every op has a device form, but this shape's reads
+    values on the host, and the reference's trace of it fails)."""
+    kind: str
+    reason: str
+
+
+def _kind_of(ft):
+    from ..types.field_type import TypeClass
+    tc = ft.tclass if ft is not None else None
+    return {TypeClass.INT: "int", TypeClass.UINT: "int",
+            TypeClass.FLOAT: "double", TypeClass.DECIMAL: "decimal",
+            TypeClass.DATE: "date", TypeClass.DATETIME: "datetime",
+            TypeClass.TIMESTAMP: "datetime"}.get(tc, "number")
+
+
+def _is_text(ft):
+    from ..types.field_type import TypeClass
+    return ft is not None and ft.tclass in (
+        TypeClass.STRING, TypeClass.JSON, TypeClass.ENUM, TypeClass.SET)
+
+
+def _form(expr, nullable):
+    """-> (form, may_null): form is "const" (a python value: number,
+    text or NULL), "dict" (dictionary codes on the device) or "arr" (a
+    number on the device); may_null says the value may carry a NULL
+    mask. Raises _HostBound for a shape whose device form reads the
+    host. `expr` is device-safe (vec.is_device_safe)."""
+    from .expr import Column, Constant
+    if isinstance(expr, Column):
+        return ("dict" if _is_text(expr.ft) else "arr",
+                bool(nullable(expr.idx)))
+    if isinstance(expr, Constant):
+        return "const", expr.value.is_null
+    op = expr.op
+    forms = [_form(a, nullable) for a in expr.args]
+    kinds = [f for f, _n in forms]
+    may_null = any(n for _f, n in forms)
+
+    def bound(i):
+        raise _HostBound(f"host-bound shape: {op} of "
+                         f"{_kind_of(expr.args[i].ft)}")
+    text_args = _TEXT_OF_NUMBER.get(op, ())
+    if op == "concat":
+        text_args = range(len(forms))
+    elif op in ("hex", "conv") and not _is_text(expr.args[0].ft):
+        text_args = (0,)
+    for i in text_args:
+        if kinds[i] == "arr":
+            bound(i)
+    if op == "concat" and not any(
+            f == "const" and n for f, n in forms) and \
+            sum(k != "const" for k in kinds) > 1:
+        raise _HostBound("host-bound shape: concat of several columns")
+    if op == "quote" and may_null:
+        raise _HostBound("host-bound shape: quote of a nullable value")
+    if op == "unix_timestamp" and _is_text(expr.args[0].ft):
+        raise _HostBound("host-bound shape: unix_timestamp of text")
+    if op in _NEVER_NULL:
+        may_null = False
+    elif op not in _NULL_OF_ARGS:
+        may_null = True
+    if all(k == "const" for k in kinds) and (
+            op in _PY_ON_CONSTANTS or
+            (kinds and any(_is_text(a.ft) for a in expr.args))):
+        return "const", may_null
+    return ("dict" if _is_text(expr.ft) else "arr"), may_null
+
+
+def device_form(expr, nullable=None):
+    """The device rule: None when the evaluator's device form of `expr`
+    runs on the device (every op device-safe, no host-bound shape),
+    else the Decline that says why it runs on the host.
+    `nullable(col_idx)` says whether a column is bound with a NULL mask
+    (by default every column may be)."""
+    from .vec import _HOST_ONLY, _REGISTRY, is_device_safe
+    if not is_device_safe(expr):
+        ops = sorted(op for op in ops_of(expr)
+                     if op in _HOST_ONLY or op not in _REGISTRY)
+        return Decline("unsafe", "no device form: " + (
+            ", ".join(ops) if ops else "a decimal above 18 digits"))
+    if nullable is None or "quote" not in ops_of(expr):
+        nullable = _ANY_NULL         # only QUOTE's route reads the masks
+    try:
+        _form(expr, nullable)
+    except _HostBound as exc:
+        return Decline("host_bound", str(exc))
+    return None

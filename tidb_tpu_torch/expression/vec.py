@@ -5,7 +5,8 @@ separate row + vectorized forms, pkg/expression/builtin_*_vec.go):
 
   * host:   xp = numpy  -> immediate columnar eval (the CPU oracle)
   * device: xp = TorchNS (expression/torch_ns.py) -> tensors on the
-    domain's torch device, for the ops in torch_ns.TORCH_OPS
+    domain's torch device, for the expressions torch_ns.device_form
+    admits (the shapes whose reference trace succeeds)
 
 Value representation: (data, nulls, sdict)
   data  : xp array (or python scalar for constants)
@@ -83,6 +84,13 @@ def _not_mask(xp, m):
     if m is True:
         return True
     return ~m
+
+
+def _astype(xp, a, dtype):
+    """a.astype(dtype) on either backend (tensors have no .astype)."""
+    if isinstance(a, np.ndarray) or np.isscalar(a):
+        return np.asarray(a).astype(dtype)
+    return xp.astype(a, dtype)
 
 
 # ---------------- casting helpers ----------------
@@ -428,7 +436,7 @@ def _numify(ctx, val, ft):
         return val                       # already numeric
     out, n2, _ = _apply_str_fn(ctx, val, mysql_str_to_float,
                                out_is_string=False,
-                               out_dtype=np.float64)
+                               out_dtype=np.float64, key=("str_to_float",))
     return out, n2, None
 
 
@@ -1225,24 +1233,27 @@ def op_minmaxkey(ctx, expr):
 
 @op("lower", "lcase")
 def op_lower(ctx, expr):
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), str.lower)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), str.lower,
+                         key=("lower",))
 
 
 @op("upper", "ucase")
 def op_upper(ctx, expr):
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), str.upper)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), str.upper,
+                         key=("upper",))
 
 
 @op("length", "octet_length")
 def op_length(ctx, expr):
     return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]),
-                         lambda s: len(s.encode("utf-8")), out_is_string=False)
+                         lambda s: len(s.encode("utf-8")), out_is_string=False,
+                         key=("length",))
 
 
 @op("char_length", "character_length")
 def op_char_length(ctx, expr):
     return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), len,
-                         out_is_string=False)
+                         out_is_string=False, key=("char_length",))
 
 
 def _to_str_val(ctx, val, ft):
@@ -1337,7 +1348,8 @@ def op_concat(ctx, expr):
         ci = col_is[0]
         pre = "".join(str(vals[i][0]) for i in range(ci))
         post = "".join(str(vals[i][0]) for i in range(ci + 1, len(vals)))
-        r = _apply_str_fn(ctx, vals[ci], lambda s: pre + s + post)
+        r = _apply_str_fn(ctx, vals[ci], lambda s: pre + s + post,
+                          key=("concat", pre, post))
         return r[0], nulls, r[2]
     # multi-column: host elementwise (device path decodes via copr fallback)
     arrs = []
@@ -1381,14 +1393,15 @@ def op_substring(ctx, expr):
 @op("left")
 def op_left(ctx, expr):
     n = _const_int(ctx, expr.args[1])
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), lambda s: s[:max(n, 0)])
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), lambda s: s[:max(n, 0)],
+                         key=("left", n))
 
 
 @op("right")
 def op_right(ctx, expr):
     n = _const_int(ctx, expr.args[1])
     return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]),
-                         lambda s: s[-n:] if n > 0 else "")
+                         lambda s: s[-n:] if n > 0 else "", key=("right", n))
 
 
 @op("trim")
@@ -1410,17 +1423,20 @@ def op_trim(ctx, expr):
         while s.endswith(rem):
             s = s[:-len(rem)]
         return s
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), t)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), t,
+                         key=("trim", rem, mode))
 
 
 @op("ltrim")
 def op_ltrim(ctx, expr):
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), str.lstrip)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), str.lstrip,
+                         key=("ltrim",))
 
 
 @op("rtrim")
 def op_rtrim(ctx, expr):
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), str.rstrip)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), str.rstrip,
+                         key=("rtrim",))
 
 
 @op("replace")
@@ -1428,7 +1444,8 @@ def op_replace(ctx, expr):
     old = _as_str_scalar(eval_expr(ctx, expr.args[1]))
     new = _as_str_scalar(eval_expr(ctx, expr.args[2]))
     return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]),
-                         lambda s: s.replace(old, new))
+                         lambda s: s.replace(old, new),
+                         key=("replace", old, new))
 
 
 @op("locate", "instr")
@@ -1447,16 +1464,17 @@ def op_locate(ctx, expr):
         data, nulls, _ = sv
         n = len(data) if hasattr(data, "__len__") and \
             not isinstance(data, str) else None
-        out = np.zeros(n, dtype=np.int64) if n is not None else 0
+        out = ctx.xp.zeros(n, dtype=np.int64) if n is not None else 0
         return out, nulls, None
     return _apply_str_fn(ctx, sv,
                          lambda s: s.find(sub, pos - 1) + 1,
-                         out_is_string=False)
+                         out_is_string=False, key=("locate", sub, pos))
 
 
 @op("reverse")
 def op_reverse(ctx, expr):
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), lambda s: s[::-1])
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), lambda s: s[::-1],
+                         key=("reverse",))
 
 
 @op("lpad")
@@ -1470,7 +1488,8 @@ def op_lpad(ctx, expr):
         need = n - len(s)
         p = (pad * need)[:need]
         return p + s
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
+                         key=("lpad", n, pad))
 
 
 @op("rpad")
@@ -1483,7 +1502,8 @@ def op_rpad(ctx, expr):
             return s[:n]
         need = n - len(s)
         return s + (pad * need)[:need]
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
+                         key=("rpad", n, pad))
 
 
 def _const_int(ctx, expr):
@@ -1690,13 +1710,15 @@ def op_bitxor(ctx, expr):
 @op("<<")
 def op_shl(ctx, expr):
     (a, an, _), (b, bn, _) = _binary_vals(ctx, expr)
-    return a << b, or_nulls(ctx.xp, an, bn), None
+    # numpy's (and XLA's) shift: 0 past 63 or below 0, where C and CUDA
+    # leave it undefined
+    return ctx.xp.left_shift(a, b), or_nulls(ctx.xp, an, bn), None
 
 
 @op(">>")
 def op_shr(ctx, expr):
     (a, an, _), (b, bn, _) = _binary_vals(ctx, expr)
-    return a >> b, or_nulls(ctx.xp, an, bn), None
+    return ctx.xp.right_shift(a, b), or_nulls(ctx.xp, an, bn), None
 
 
 @op("~")
@@ -1740,7 +1762,8 @@ def _days_of(ctx, expr_arg):
     if sd is not None or isinstance(a, str) or \
             (hasattr(a, "dtype") and a.dtype == object):
         from ..types.time_types import parse_date
-        r = _apply_str_fn(ctx, (a, an, sd), parse_date, out_is_string=False)
+        r = _apply_str_fn(ctx, (a, an, sd), parse_date, out_is_string=False,
+                          key=("parse_date",))
         return r[0], r[1]
     if tc in (TypeClass.DATETIME, TypeClass.TIMESTAMP):
         return a // MICROS_PER_DAY, an
@@ -1945,7 +1968,8 @@ def op_cast_int(ctx, expr):
             # SIGNED) -> 124)
             v = mysql_str_to_float(s)
             return int(v + 0.5) if v >= 0 else int(v - 0.5)
-        return _apply_str_fn(ctx, (a, an, sd), p, out_is_string=False)
+        return _apply_str_fn(ctx, (a, an, sd), p, out_is_string=False,
+                             key=("cast_int",))
     cls = _dataclass_of(ft)
     if cls == "float":
         return xp.asarray(xp.round(a), dtype=np.int64), an, None
@@ -1963,7 +1987,8 @@ def op_cast_double(ctx, expr):
         data, nulls, _ = _apply_str_fn(ctx, (a, an, sd),
                                        mysql_str_to_float,
                                        out_is_string=False,
-                                       out_dtype=np.float64)
+                                       out_dtype=np.float64,
+                                       key=("str_to_float",))
         return ctx.xp.asarray(data, dtype=ctx.float_dtype), nulls, None
     return _to_float(ctx, a, ft), an, None
 
@@ -1983,7 +2008,8 @@ def op_cast_decimal(ctx, expr):
                 return dec_to_scaled_int(s, ts)
             except Exception:
                 return 0
-        return _apply_str_fn(ctx, (a, an, sd), p, out_is_string=False)
+        return _apply_str_fn(ctx, (a, an, sd), p, out_is_string=False,
+                             key=("cast_decimal", ts))
     cls = _dataclass_of(ft)
     if cls == "decimal":
         k = ts - _scale_of(ft)
@@ -2031,7 +2057,8 @@ def op_cast_str_to_date(ctx, expr):
     av = eval_expr(ctx, expr.args[0])
     if isinstance(av[0], str):
         return parse_date(av[0]), av[1], None
-    return _apply_str_fn(ctx, av, parse_date, out_is_string=False)
+    return _apply_str_fn(ctx, av, parse_date, out_is_string=False,
+                         key=("parse_date",))
 
 
 @op("cast_str_to_datetime", "cast_str_to_time")
@@ -2040,7 +2067,8 @@ def op_cast_str_to_datetime(ctx, expr):
     av = eval_expr(ctx, expr.args[0])
     if isinstance(av[0], str):
         return parse_datetime(av[0]), av[1], None
-    return _apply_str_fn(ctx, av, parse_datetime, out_is_string=False)
+    return _apply_str_fn(ctx, av, parse_datetime, out_is_string=False,
+                         key=("parse_datetime",))
 
 
 @op("cast_date_to_datetime")
@@ -2086,7 +2114,7 @@ def op_crc32(ctx, expr):
     import zlib
     return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]),
                          lambda s: zlib.crc32(s.encode()) & 0xFFFFFFFF,
-                         out_is_string=False)
+                         out_is_string=False, key=("crc32",))
 
 
 @op("conv")
@@ -2124,7 +2152,7 @@ def op_conv(ctx, expr):
         out = np.array([conv1(x) for x in np.asarray(data)],
                        dtype=object)
         return out, nulls, None
-    return _apply_str_fn(ctx, val, f)
+    return _apply_str_fn(ctx, val, f, key=("conv", frm, to))
 
 
 # ---------------- more string/byte functions ----------------
@@ -2134,7 +2162,7 @@ def op_hex(ctx, expr):
     aft = expr.args[0].ft
     if _dataclass_of(aft) == "string":
         return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]),
-                             lambda s: s.encode().hex().upper())
+                             lambda s: s.encode().hex().upper(), key=("hex",))
     a, an, _ = eval_expr(ctx, expr.args[0])
     return _int_to_str_col(ctx, a, an, lambda v: format(int(v), "X"))
 
@@ -2156,7 +2184,7 @@ def op_unhex(ctx, expr):
             return bytes.fromhex(s).decode("utf-8", "surrogateescape")
         except ValueError:
             return ""
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f, key=("unhex",))
 
 
 @op("bin")
@@ -2174,7 +2202,8 @@ def op_oct(ctx, expr):
 @op("ascii", "ord")
 def op_ascii(ctx, expr):
     return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]),
-                         lambda s: ord(s[0]) if s else 0, out_is_string=False)
+                         lambda s: ord(s[0]) if s else 0, out_is_string=False,
+                         key=("ascii",))
 
 
 @op("char")
@@ -2194,7 +2223,7 @@ def op_char(ctx, expr):
 def op_repeat(ctx, expr):
     n = _const_int(ctx, expr.args[1])
     return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]),
-                         lambda s: s * max(n, 0))
+                         lambda s: s * max(n, 0), key=("repeat", n))
 
 
 @op("space")
@@ -2244,14 +2273,16 @@ def op_elt(ctx, expr):
 def op_md5(ctx, expr):
     import hashlib
     return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]),
-                         lambda s: hashlib.md5(s.encode()).hexdigest())
+                         lambda s: hashlib.md5(s.encode()).hexdigest(),
+                         key=("md5",))
 
 
 @op("sha1", "sha")
 def op_sha1(ctx, expr):
     import hashlib
     return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]),
-                         lambda s: hashlib.sha1(s.encode()).hexdigest())
+                         lambda s: hashlib.sha1(s.encode()).hexdigest(),
+                         key=("sha1",))
 
 
 @op("format")
@@ -2309,7 +2340,7 @@ def op_json_extract(ctx, expr):
         return "" if v is None else _json.dumps(v)
     val = _to_str_val(ctx, eval_expr(ctx, expr.args[0]),
                       expr.args[0].ft)
-    data, nulls, sd = _apply_str_fn(ctx, val, f)
+    data, nulls, sd = _apply_str_fn(ctx, val, f, key=("json_extract", path))
     return data, nulls, sd
 
 
@@ -2323,7 +2354,8 @@ def op_json_unquote(ctx, expr):
             except Exception:
                 return s
         return s
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
+                         key=("json_unquote",))
 
 
 @op("json_valid")
@@ -2337,7 +2369,7 @@ def op_json_valid(ctx, expr):
         except Exception:
             return 0
     return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
-                         out_is_string=False)
+                         out_is_string=False, key=("json_valid",))
 
 
 @op("json_length")
@@ -2351,7 +2383,7 @@ def op_json_length(ctx, expr):
             return 0
         return len(v) if isinstance(v, (list, dict)) else 1
     return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
-                         out_is_string=False)
+                         out_is_string=False, key=("json_length",))
 
 
 # ---------------- VECTOR (reference pkg/types VectorFloat32 +
@@ -2563,7 +2595,7 @@ def op_vec_dims(ctx, expr):
         v = _parse_vec_text(s)
         return len(v) if v is not None else 0
     return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
-                         out_is_string=False)
+                         out_is_string=False, key=("vec_dims",))
 
 
 @op("vec_l2_norm")
@@ -2588,7 +2620,8 @@ def op_vec_l2_norm(ctx, expr):
 def op_vec_from_text(ctx, expr):
     def f(s):
         return vec_text_normalize(s)
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
+                         key=("vec_from_text",))
 
 
 @op("vec_as_text")
@@ -2711,7 +2744,7 @@ def op_quote(ctx, expr):
         bool(np.asarray(materialize_nulls(ctx, nl)).any()))
     if not has_null:
         # fast path: dict columns transform O(distinct), not O(rows)
-        return _apply_str_fn(ctx, val, q)
+        return _apply_str_fn(ctx, val, q, key=("quote",))
     return _rowwise(ctx, expr,
                     lambda s: "NULL" if s is None else q(s),
                     null_ok=True, str_args=True)
@@ -2735,7 +2768,8 @@ def op_soundex(ctx, expr):
                 out += d
             prev = d
         return (out + "000")[:4]
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
+                         key=("soundex",))
 
 
 @op("to_base64")
@@ -2744,7 +2778,8 @@ def op_to_base64(ctx, expr):
 
     def f(s):
         return base64.b64encode(str(s).encode()).decode()
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
+                         key=("to_base64",))
 
 
 @op("from_base64")
@@ -2756,7 +2791,8 @@ def op_from_base64(ctx, expr):
             return base64.b64decode(str(s)).decode("utf-8", "replace")
         except Exception:               # noqa: BLE001
             return ""
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
+                         key=("from_base64",))
 
 
 @op("sha2")
@@ -2771,7 +2807,8 @@ def op_sha2(ctx, expr):
         if algo is None:
             return ""
         return getattr(hashlib, algo)(str(s).encode()).hexdigest()
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
+                         key=("sha2", algo))
 
 
 @op("cot")
@@ -2785,7 +2822,9 @@ def op_cot(ctx, expr):
 def op_bit_count(ctx, expr):
     a, an, _ = eval_expr(ctx, expr.args[0])
     xp = ctx.xp
-    v = xp.asarray(a).astype(xp.uint64)
+    # on the device uint64 rides as int64 bits: every shift below is
+    # masked or of a non-negative value, so it is the logical shift
+    v = _astype(xp, xp.asarray(a), xp.uint64)
     # SWAR popcount (device-safe: no loops, pure vector arithmetic)
     m1 = xp.uint64(0x5555555555555555)
     m2 = xp.uint64(0x3333333333333333)
@@ -2800,7 +2839,7 @@ def op_bit_count(ctx, expr):
     v = v + (v >> xp.uint64(8))
     v = v + (v >> xp.uint64(16))
     v = v + (v >> xp.uint64(32))
-    return (v & xp.uint64(0x7F)).astype(xp.int64), an, None
+    return _astype(xp, v & xp.uint64(0x7F), xp.int64), an, None
 
 
 @op("interval")
@@ -2811,7 +2850,7 @@ def op_interval(ctx, expr):
         else np.int64(0)
     for a in expr.args[1:]:
         v, vn, _ = eval_expr(ctx, a)
-        out = out + (xp.asarray(n) >= xp.asarray(v)).astype(xp.int64)
+        out = out + _astype(xp, xp.asarray(n) >= xp.asarray(v), xp.int64)
     return out, nn, None
 
 
@@ -2971,7 +3010,7 @@ def _arg_micros(ctx, expr_arg):
             (hasattr(a, "dtype") and a.dtype == object):
         from ..types.time_types import parse_datetime
         r = _apply_str_fn(ctx, (a, an, sd), parse_datetime,
-                          out_is_string=False)
+                          out_is_string=False, key=("parse_datetime",))
         return r[0], r[1]
     if tc == TypeClass.DATE:
         return a * MICROS_PER_DAY, an
@@ -3143,7 +3182,8 @@ def op_timestampdiff(ctx, expr):
     # not a full month if b's day-of-month/time is earlier than a's
     ta = xp.asarray(a) % MICROS_PER_DAY + da * MICROS_PER_DAY
     tb = xp.asarray(b) % MICROS_PER_DAY + db_ * MICROS_PER_DAY
-    months = months - ((months > 0) & (tb < ta)) + ((months < 0) & (tb > ta))
+    months = months - _astype(xp, (months > 0) & (tb < ta), np.int64) + \
+        _astype(xp, (months < 0) & (tb > ta), np.int64)
     if unit == "month":
         return months, nulls, None
     if unit == "quarter":
@@ -3245,7 +3285,8 @@ def op_json_type(ctx, expr):
         if isinstance(v, str):
             return "STRING"
         return "UNKNOWN"
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
+                         key=("json_type",))
 
 
 @op("json_keys")
@@ -3255,7 +3296,8 @@ def op_json_keys(ctx, expr):
     def f(s):
         v = _json_load(s)
         return _json.dumps(list(v.keys())) if isinstance(v, dict) else ""
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
+                         key=("json_keys",))
 
 
 @op("json_depth")
@@ -3271,7 +3313,7 @@ def op_json_depth(ctx, expr):
         v = _json_load(s)
         return depth(v) if v is not None or str(s).strip() == "null" else 0
     return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
-                         out_is_string=False)
+                         out_is_string=False, key=("json_depth",))
 
 
 @op("json_contains")
@@ -3298,7 +3340,7 @@ def op_json_contains(ctx, expr):
         v = _json_load(s)
         return 1 if contains(v, cand) else 0
     return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
-                         out_is_string=False)
+                         out_is_string=False, key=("json_contains", cand_txt))
 
 
 @op("json_quote")
@@ -3307,7 +3349,8 @@ def op_json_quote(ctx, expr):
 
     def f(s):
         return _json.dumps(str(s))
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
+                         key=("json_quote",))
 
 
 @op("json_array")
@@ -3660,7 +3703,8 @@ def op_json_pretty(ctx, expr):
         if v is None and str(s).strip() != "null":
             return None
         return _json.dumps(v, indent=2)
-    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f)
+    return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
+                         key=("json_pretty",))
 
 
 @op("json_storage_size")
@@ -3668,7 +3712,7 @@ def op_json_storage_size(ctx, expr):
     def f(s):
         return len(str(s).encode())
     return _apply_str_fn(ctx, eval_expr(ctx, expr.args[0]), f,
-                         out_is_string=False)
+                         out_is_string=False, key=("json_storage_size",))
 
 
 @op("weight_string")

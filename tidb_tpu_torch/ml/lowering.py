@@ -2,7 +2,7 @@
 tidb_tpu/ml/lowering.py).
 
 `predict(m, f1, f2, ...)` is a registered, device-safe expression op
-(in expression/torch_ns.TORCH_OPS): when a filter/projection containing
+(expression/torch_ns.device_form): when a filter/projection containing
 it lands in a copr fragment, the xp-generic forward chain runs in the
 SAME fragment body as the scan/filter/agg over the fragment's device
 columns, with the model's weights taken from MLRuntime.device_weights
