@@ -7,13 +7,18 @@ dimension tables on the card (Q3, Q4, Q5, Q10, Q12, Q14, Q19, Q22, the
 sort-kind group-bys Q2, Q7, Q8, Q9, Q11, Q15, Q16, Q18, Q20 and Q20
 without its nation predicate, and Q13, Q17 and Q21, whose materialized
 dims run their subplans once and serve later statements from a cache; Q3
-and Q10 aggregate as runs on the card), then reader-DAG statements (a
+and Q10 aggregate as runs on the card; the fused pipeline's three learned
+programs each serve at least one of them: early compaction of the fact
+filters' survivors, top-N candidates, one-hot slot aggregation, with
+each query's route printed, and each program's warm statements timed
+beside the same statements with its pin set off), then reader-DAG statements (a
 filter and a top-N over lineitem, per-key counts that take the runs
 lowering and the runs->sorted pin, dense and global group-bys of a small
 table) against their host twin, then the executor's device hooks (ORDER
-BYs over customer and orders, window functions over all of orders,
+BYs over customer and orders, window functions over half of orders,
 row-returning inner, left, semi and anti hash joins between them) against
-their host twin and the reference's committed digests, then vector
+their host twin and the reference's committed digests (the windows over
+the orders of odd customers), then vector
 search over 250,000 x VECTOR(128) (sift-128-euclidean's shape, a
 seeded mixture of Gaussians loaded by IMPORT INTO's bulk path: exact
 top-10 in three metrics, ties across the 10th row and NULL vectors, a
@@ -732,10 +737,24 @@ SQL_CASES = (("q6", "range_filter_sums", ("masked_sums",), 1),
 # (a scan outside a fused node) counts on the device or on the host
 ROUTE_COUNTERS = ("fused_pipeline_hit", "copr_host_exec", "copr_device_exec",
                   "fused_pipeline_fallback", "fused_pipeline_error")
-# the sort kind's learning reruns (cold statements only), fused and reader
+# the learning reruns (cold statements only), fused and reader: the sort
+# kind's regrows and pin, a compaction (late or early) regrown, top-N
+# candidates whose cover proof failed, a one-hot slot table missing a key
 RETRY_COUNTERS = ("fused_bucket_regrow", "fused_runs_degrade",
-                  "fused_compact_regrow", "copr_bucket_regrow",
+                  "fused_compact_regrow", "fused_topn_off",
+                  "fused_onehot_miss", "copr_bucket_regrow",
                   "copr_runs_degrade")
+# the fused pipeline's learned programs: the partitions each served, and
+# the host cache entry that holds what it learned (an int capacity or
+# "off"; True when the candidates are pinned off; a slot table or False)
+PROGRAM_COUNTERS = {"ecap": "fused_ecap_run", "topn": "fused_topn_cand",
+                    "onehot": "fused_onehot_agg"}
+PROGRAM_STATE = {"ecap": "fecompact", "topn": "ftopn_off",
+                 "onehot": "onehot"}
+# per query of phase_sql: {"took": {program: partitions its last warm
+# statement served}, "keys": the gb keys (host cache key tails) its
+# fragments learned under, "fetch_bytes", "ngroups"}
+PROGRAMS = {}
 # materialized dims: subplans run, and served from the cache
 MATDIM_COUNTERS = ("fused_matdim_build", "fused_matdim_hit")
 KERNELS = ("masked_sums", "dense_group_sums", "range_filter_sums")
@@ -974,6 +993,35 @@ def sort_kind_state(dom):
             k[0] in ("gb", "aggimpl", "fcompact")}
 
 
+def program_state(dom):
+    """The learned programs' entries in the copr's host cache, keyed by
+    (program, key tail)."""
+    kinds = {v: k for k, v in PROGRAM_STATE.items()}
+    return {(kinds[k[0]], k[1:]): v
+            for k, v in dom.copr._host_cache.items()
+            if isinstance(k, tuple) and k and k[0] in kinds}
+
+
+def program_route(state, keys):
+    """What a query's learned programs hold, in words: the early
+    compaction capacity, the top-N pin, the one-hot slot count."""
+    out = []
+    for key in keys:
+        ec = state.get(("ecap", key))
+        oh = state.get(("onehot", key))
+        out.append({"ecap": ec,
+                    "topn_off": bool(state.get(("topn", key))),
+                    "onehot": oh["nslots"] if isinstance(oh, dict) else oh})
+    return out
+
+
+def partition_caps(tk, table):
+    """The padded capacities of `table`'s fact partitions."""
+    from tidb_tpu_torch.chunk.device import shape_bucket
+    n, step = table_rows(tk, table), tk.domain.copr.device_rows
+    return {shape_bucket(min(step, n - s)) for s in range(0, n, step)}
+
+
 def phase_line(snap):
     return " ".join(f"{k}={snap.get(k, 0)}" for k in (
         "dispatches", "syncs", "upload_bytes", "mask_upload_bytes",
@@ -1001,11 +1049,13 @@ def phase_sql(tk, exp, nparts, queries, guard):
         sql, want = sql_and_rows(tk, exp, q)
         warm, calls = [], []
         learned0 = sort_kind_state(dom)
+        programs0 = program_state(dom)
         for i in range(2 + WARM_RUNS):
             checked = i == 1 + WARM_RUNS
             route = route_of(tk, q, nparts, i == 0)
             m0 = {c: dom.metrics.get(c, 0) for c in ROUTE_COUNTERS +
-                  RETRY_COUNTERS + MATDIM_COUNTERS + HOOK_COUNTERS}
+                  RETRY_COUNTERS + MATDIM_COUNTERS + HOOK_COUNTERS +
+                  tuple(PROGRAM_COUNTERS.values())}
             c0 = dict(sk.COUNTS)
             g0 = guard.calls
             hs0, h0 = guard.hook_syncs, dict(guard.hook_calls)
@@ -1039,6 +1089,14 @@ def phase_sql(tk, exp, nparts, queries, guard):
                      f"{want_mat}")
             if 0 < i and not checked:
                 warm.append(ms)
+            took = {p: dom.metrics.get(c, 0) - m0[c]
+                    for p, c in PROGRAM_COUNTERS.items()}
+            if checked and took["ecap"]:
+                check_compacted(q, calls, partition_caps(tk, fact_of(q)),
+                                took["ecap"])
+            elif 0 < i:
+                last_warm = (took, snap.get("fetch_bytes", 0),
+                             list(NGROUPS))
             kind = "cold" if i == 0 else "checked" if checked else "warm"
             log(f"sql {q} {kind} {ms:.2f} ms {phase_line(snap)} launches=" +
                 json.dumps({k: sk.COUNTS[k] - c0[k]
@@ -1062,12 +1120,117 @@ def phase_sql(tk, exp, nparts, queries, guard):
             log(f"sql {q}: sort kind learned {json.dumps(learned)}; "
                 f"ngroups by partition of the last statement "
                 f"{NGROUPS}; fetch_bytes {snap.get('fetch_bytes', 0)}")
+        state = program_state(dom)
+        keys = list(dict.fromkeys(key for (prog, key), v in state.items()
+                                  if programs0.get((prog, key)) != v))
+        PROGRAMS[q] = {"took": last_warm[0], "keys": keys,
+                       "fetch_bytes": last_warm[1],
+                       "ngroups": last_warm[2]}
+        log(f"sql {q}: programs of a warm statement (partitions served) "
+            f"{json.dumps(last_warm[0])}; learned "
+            f"{json.dumps(program_route(state, keys))}; partials fetched "
+            f"per partition {last_warm[2]}; fetch_bytes {last_warm[1]}")
         meds[q] = statistics.median(warm)
         fact = fact_of(q)
         log(f"sql {q}: rows == {'expected' if q in exp else 'numpy oracle'}"
             f" ({len(want)} rows); warm median {meds[q]:.3f} ms, "
             f"{table_rows(tk, fact) / meds[q] * 1e3:.4g} {fact} rows/s")
     return meds
+
+
+def check_compacted(q, calls, caps, served):
+    """The checked statement of q ran `served` partitions compacted
+    early: its kernel calls at a compacted size (n below every partition
+    capacity of its fact table, `caps`), which checked_kernels held to
+    their plain versions, must be there when it launched any. -> those
+    calls."""
+    small = [(name, shape) for name, shape in calls
+             if int(shape.split()[0][2:]) < min(caps)]
+    if calls and not small:
+        fail(f"{q}: {served} partitions compacted early, but no kernel "
+             f"call at a compacted size among {calls}")
+    log(f"sql {q}: {served} partitions compacted early; kernel calls at "
+        f"the compacted size == plain versions: "
+        + ("; ".join(f"{name} {shape}" for name, shape in small) or "none"))
+    return small
+
+
+def pin_off(dom, prog, keys):
+    """Set the reference's own off pin of `prog` under each of `keys`
+    (host cache key tails): ecap "off", top-N True, one-hot False."""
+    value = {"ecap": "off", "topn": True, "onehot": False}[prog]
+    for key in keys:
+        dom.copr._host_cache[(PROGRAM_STATE[prog],) + key] = value
+
+
+def phase_programs(tk, exp):
+    """Each learned program against the route it replaces, on the
+    statements of phase_sql whose warm runs it served: the statement
+    with the learned state as phase_sql left it ("on") and with the
+    program's pin set off (pin_off, "off"), alternated WARM_RUNS times
+    each after one settling run of each (the state is put back before
+    every statement, so neither mode learns for the other), rows ==
+    the committed rows every time; then one statement of each mode
+    under torch.profiler (device busy ms). A finding, not a gate. ->
+    {program: {query: {"on_ms", "off_ms" (warm medians), "on_device_ms",
+    "off_device_ms", "on_fetch_bytes", "off_fetch_bytes",
+    "on_ngroups", "off_ngroups" (partials per partition)}}}."""
+    import torch
+    from tidb_tpu_torch.bench.profile_tpch import _device_profile
+    from tidb_tpu_torch.utils import phase
+    hc = tk.domain.copr._host_cache
+    out = {}
+    for prog in PROGRAM_COUNTERS:
+        for q, rec in PROGRAMS.items():
+            if not rec["took"][prog]:
+                continue
+            sql, want = sql_and_rows(tk, exp, q)
+            saved = dict(hc)
+            ms = {"on": [], "off": []}
+            seen = {}
+
+            def run(mode, timed=True):
+                hc.clear()
+                hc.update(saved)
+                if mode == "off":
+                    pin_off(tk.domain, prog, rec["keys"])
+                phase.reset()
+                t0 = time.perf_counter()
+                got = tk.must_query(sql)._norm()
+                if timed:
+                    ms[mode].append((time.perf_counter() - t0) * 1e3)
+                if got != want:
+                    fail(f"programs {prog} {mode} {q}: rows {got} != "
+                         f"expected {want}")
+                seen[mode] = (phase.snap().get("fetch_bytes", 0),
+                              list(NGROUPS))
+
+            def profiled(mode):
+                _wall, busy, _top, _m, _c = _device_profile(
+                    torch, lambda: run(mode, timed=False), 1)
+                return None if busy is None else busy * 1e3
+            try:
+                run("off", timed=False)
+                run("on", timed=False)
+                for i in range(WARM_RUNS):
+                    for mode in (("on", "off") if i % 2 else ("off", "on")):
+                        run(mode)
+                dev = {mode: profiled(mode) for mode in ("on", "off")}
+            finally:
+                hc.clear()
+                hc.update(saved)
+            r = {}
+            for mode in ("on", "off"):
+                r[f"{mode}_ms"] = statistics.median(ms[mode])
+                r[f"{mode}_device_ms"] = dev[mode]
+                r[f"{mode}_fetch_bytes"], r[f"{mode}_ngroups"] = seen[mode]
+            out.setdefault(prog, {})[q] = r
+            log(f"programs {prog} {q}: warm median {r['on_ms']:.3f} ms "
+                f"with it, {r['off_ms']:.3f} ms with its pin off; device "
+                f"busy {dev['on']} / {dev['off']} ms; fetch_bytes "
+                f"{r['on_fetch_bytes']} / {r['off_fetch_bytes']}; partials "
+                f"per partition {r['on_ngroups']} / {r['off_ngroups']}")
+    return out
 
 
 # the reader phase (ROADMAP A.4): statements whose scans run
@@ -1217,7 +1380,9 @@ def phase_reader(tk, guard, cases=READER_CASES):
 HOOK_COUNTERS = ("sort_device", "window_device", "device_join",
                  "sort_device_error", "window_device_error",
                  "device_join_fallback", "device_fallback")
-HOST_RUNS = 3
+# warm runs of each executor statement's host twin (after its cold run):
+# one since the whole run passed 900 s (3 before; PERF.md section 4)
+HOST_RUNS = 1
 
 
 def phase_executor(tk, exp, guard, card=""):
@@ -4115,6 +4280,18 @@ def main():
             tk, exp, nparts, [c[0] for c in JOIN_CASES], guard), folds=False)
         log(f"join phase {time.perf_counter() - t0:.1f} s; warm medians "
             f"ms: {json.dumps(join_meds)}")
+        fired = {prog: [q for q, rec in PROGRAMS.items() if rec["took"][prog]]
+                 for prog in PROGRAM_COUNTERS}
+        log(f"learned programs served the warm statements of "
+            f"{json.dumps(fired)}")
+        for prog, qs in fired.items():
+            if not qs:
+                fail(f"the {prog} program served no SF1 statement")
+        t0 = time.perf_counter()
+        programs = counted("programs", lambda: phase_programs(tk, exp),
+                           folds=False, kernels=())
+        programs["seconds"] = time.perf_counter() - t0
+        log(f"programs phase {programs['seconds']:.1f} s")
         t0 = time.perf_counter()
         reader_ms = counted("reader", lambda: phase_reader(tk, guard),
                             folds=False, kernels=("masked_sums",
@@ -4218,6 +4395,11 @@ def main():
     print(json.dumps({"programs": vec["programs"] + ml["programs"],
                       "card": card}), flush=True)
     print(json.dumps({"builtins": builtins, "card": card}), flush=True)
+    print(json.dumps({"learned_programs": {
+        "routes": {q: {"took": rec["took"], "ngroups": rec["ngroups"],
+                       "fetch_bytes": rec["fetch_bytes"]}
+                   for q, rec in PROGRAMS.items()},
+        "against_pins_off": programs}, "card": card}), flush=True)
     log(f"card: {card}")
     log(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

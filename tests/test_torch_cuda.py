@@ -961,3 +961,160 @@ def test_builtin_device_forms_on_card():
         T.assert_same(name, T.normalize(val, nulls), want)
         ran += 1
     assert ran > 300, ran
+
+
+# ---- the fused pipeline's learned programs ------------------------------
+
+def _synced(fn):
+    """fn() under set_sync_debug_mode("error"): a wait on the card in it
+    raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+class _Copr:
+    """What _oh_learn_table reads and writes of a CoprExecutor, with its
+    uploads onto `device`."""
+
+    def __init__(self, device):
+        self._host_cache = {}
+        self.device = device
+
+    def _upload_padded(self, arr, cap):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+
+class _Agg:
+    def __init__(self, name, args):
+        self.name, self.args, self.distinct = name, args, False
+
+
+@pytest.mark.parametrize("nkeys,values,miss", [
+    (40, "wide", False), (40, "near_limits", True), (10000, "wide", False)])
+def test_onehot_states_match_cpu_on_card(nkeys, values, miss):
+    """dag_exec.onehot_agg_body on CUDA tensors (enqueued with no wait on
+    the card) == the same body on the CPU, which tests/
+    test_torch_onehot_agg.py holds to the reference: the int64 slot
+    states (count, sum, avg; sums near +-2^62 that wrap), the row count
+    per slot and the miss count, with NULL keys; a 40 x 3 key table
+    (128 slots in 64 copies) and a 10,000 x 3 one (32,768 slots, one
+    copy)."""
+    from tidb_tpu_torch.copr import dag_exec, pipeline
+    from tidb_tpu_torch.expression import EvalCtx
+    from tidb_tpu_torch.expression.expr import Column
+    from tidb_tpu_torch.expression.torch_ns import TorchNS
+    from tidb_tpu_torch.types.field_type import new_bigint_type
+    n = 1 << 20
+    rng = np.random.default_rng(nkeys)
+    k0 = rng.integers(0, nkeys, n) * 977
+    k0n = rng.random(n) < 0.05
+    k1 = rng.integers(0, 3, n)
+    if values == "near_limits":
+        v = np.where(rng.random(n) < 0.5, 1 << 62, -(1 << 62)) + \
+            rng.integers(-1000, 1000, n)
+    else:
+        v = rng.integers(-(1 << 40), 1 << 40, n)
+    vn = rng.random(n) < 0.1
+    mask = rng.random(n) < 0.9
+    learn = k0 != 977 if miss else np.ones(n, dtype=bool)
+
+    class Plan:
+        group_items = [0, 1]
+    tables = {}
+    for dev in ("cpu", "cuda"):
+        copr = _Copr(dev)
+        pipeline._oh_learn_table(copr, "k", Plan, [(
+            [k0[learn], k1[learn]], [k0n[learn], np.zeros(int(learn.sum()),
+                                                          dtype=bool)])])
+        tables[dev] = copr._host_cache["k"]
+    scap = tables["cpu"]["scap"]
+    aggs = [_Agg("count", []), _Agg("sum", [Column(2, new_bigint_type())]),
+            _Agg("avg", [Column(2, new_bigint_type())]),
+            _Agg("count", [Column(2, new_bigint_type())])]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        cols = {0: (_t(k0).to(dev), _t(k0n).to(dev), None),
+                1: (_t(k1).to(dev), None, None),
+                2: (_t(v).to(dev), _t(vn).to(dev), None)}
+        ctx = EvalCtx(TorchNS(dev), n, cols, host=False)
+        gi = [Column(0, new_bigint_type()), Column(1, new_bigint_type())]
+        m = _t(mask).to(dev)
+        body = (lambda ctx=ctx, m=m, dev=dev: dag_exec.onehot_agg_body(
+            ctx, m, gi, aggs, n, scap, tables[dev]["dev"]))
+        res = _synced(body) if dev == "cuda" else body()
+        got[dev] = {k: x.cpu() for k, x in res.items()}
+    assert torch.equal(got["cuda"]["oh_acc"], got["cpu"]["oh_acc"])
+    assert int(got["cuda"]["miss"]) == int(got["cpu"]["miss"])
+    assert (int(got["cpu"]["miss"]) > 0) == miss
+
+
+@pytest.mark.parametrize("kind,desc,pool", [
+    ("agg", True, 5), ("agg", False, 5), ("group", True, 1 << 62),
+    ("agg", True, 1 << 40)])
+def test_topn_select_matches_cpu_on_card(kind, desc, pool):
+    """pipeline._topn_select on CUDA tensors (a stable sort of 2^18
+    partials, enqueued with no wait on the card) selects the same
+    candidates, in the same order, as on the CPU, which
+    tests/test_torch_fused_topn.py holds to the reference's lax.top_k:
+    heavy ties, NULL metrics, both directions."""
+    from tidb_tpu_torch.copr import pipeline
+    bucket, ng, kprime = 1 << 18, 200_000, 1066
+    rng = np.random.default_rng(pool % 1000)
+    v = rng.integers(-pool, pool, bucket)
+    cnt = np.where(rng.random(bucket) < 0.1, 0, rng.integers(1, 9, bucket))
+    nul = rng.random(bucket) < 0.1
+    spec = (kind, 0, desc, kprime)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        res = {"ngroups": torch.tensor(ng, device=dev),
+               "keys": [_t(v).to(dev)], "key_nulls": [_t(nul).to(dev)],
+               "states": [[_t(v).to(dev), _t(cnt).to(dev)]],
+               "nvalid": torch.tensor(7, device=dev)}
+        aggs = [_Agg("sum", [])]
+
+        def call(res=res, aggs=aggs):
+            return pipeline._topn_select(res, aggs, spec, bucket)
+        out = _synced(call) if dev == "cuda" else call()
+        got[dev] = out
+    assert torch.equal(got["cuda"]["sel"].cpu(), got["cpu"]["sel"])
+    for a, b in zip(got["cuda"]["keys"] + got["cuda"]["states"][0],
+                    got["cpu"]["keys"] + got["cpu"]["states"][0]):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_learned_programs_on_card():
+    """Q3 (top-N candidates), Q14 and Q12 (early compaction) and Q7
+    (one-hot slots) through TestKit on the card, cold then warm, equal
+    the CPU's rows; the warm statement of each took its program, made
+    one dispatch and one sync per partition and uploaded nothing, every
+    fragment enqueue under set_sync_debug_mode("error")."""
+    from tidb_tpu_torch.bench import tpch
+    from tidb_tpu_torch.copr import pipeline
+    from tidb_tpu_torch.testkit import TestKit
+    from tidb_tpu_torch.utils import phase
+    gpu, cpu = TestKit(), TestKit(device="cpu")
+    for kit in (gpu, cpu):
+        tpch.load_tpch(kit, sf=0.05, seed=7)
+    run = pipeline.run_fragment
+    pipeline.run_fragment = lambda *a: _synced(lambda: run(*a))
+    m = gpu.domain.metrics
+    try:
+        for q, counter in (("q3", "fused_topn_cand"),
+                           ("q14", "fused_ecap_run"),
+                           ("q12", "fused_ecap_run"),
+                           ("q7", "fused_onehot_agg")):
+            want = cpu.must_query(tpch.ALL_QUERIES[q])._norm()
+            for run_i in range(3):
+                m0 = m.get(counter, 0)
+                phase.reset()
+                assert gpu.must_query(tpch.ALL_QUERIES[q])._norm() == want
+            snap = phase.snap()
+            assert m.get(counter, 0) > m0, (q, counter)
+            assert snap["dispatches"] == snap["syncs"] >= 1, (q, snap)
+            assert not snap.get("upload_bytes"), (q, snap)
+    finally:
+        pipeline.run_fragment = run

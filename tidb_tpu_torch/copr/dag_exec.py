@@ -72,7 +72,12 @@ mesh run that fails fails its statement; it is never retried on one
 device. Below two shards the route declines and every path above runs
 as it does without a mesh.
 
-Not yet ported: the one-hot lowering.
+The one-hot lowering (onehot_agg_body) takes a small group domain
+whose slot table the fused pipeline learned from an earlier statement
+(copr/pipeline.py): each row's packed group key is looked up in the
+table and its int64 states add into its slot; a key not in the table is
+counted as a miss, and the pipeline reruns the partition with the sort
+kind.
 """
 from __future__ import annotations
 
@@ -1884,6 +1889,115 @@ def sort_agg_body(ctx, mask, group_items, aggs, cap, group_bucket,
             raise NotImplementedError(a.name)
     return {"ngroups": ngroups, "keys": out_keys,
             "key_nulls": out_key_nulls, "states": states}
+
+
+# ---- one-hot slot aggregation (small learned group domains) ---------
+
+# the learned slot table holds at most this many groups
+_ONEHOT_MAX = 32768
+# rows of the accumulator's copies: a table of scap slots is kept in
+# max(1, _ONEHOT_SPREAD // scap) copies (at most _ONEHOT_COPIES), each
+# row adding into copy (row index mod copies), so a few hot slots do
+# not serialize every row's atomic add on one address
+_ONEHOT_SPREAD = 1 << 14
+_ONEHOT_COPIES = 64
+
+
+def onehot_agg_layout(aggs):
+    """-> the state columns of the one-hot accumulator, in order: (agg
+    index, state index) per column — count -> its count; sum/avg -> the
+    sum, then the count — and a trailing (-1, -1) row count per slot,
+    which drives the zero-slot drop. Only count/sum/avg lay out: the
+    pipeline checks eligibility before it learns a table."""
+    specs = []
+    for ai, a in enumerate(aggs):
+        if a.name == "count":
+            specs.append((ai, 0))
+        elif a.name in ("sum", "avg"):
+            specs.extend([(ai, 0), (ai, 1)])
+        else:
+            raise NotImplementedError(f"onehot lowering over {a.name}")
+    specs.append((-1, -1))
+    return specs
+
+
+def onehot_agg_body(ctx, mask, group_items, aggs, cap, scap, sargs):
+    """Segment aggregation into a host-learned slot table (the
+    reference's onehot_agg_body) instead of a sort or a runs pass.
+
+    sargs (the slot table, resident on the device):
+      skeys  (scap,) int64  sorted packed keys, padded with INT64_MAX
+      los    (K,)    int64  per group item: pack offset
+      spans  (K,)    int64  per group item: pack span (NULL code 0 in it)
+      nslots (1,)    int64  live slots
+    Each row's group codes pack into one int64 with the table's offsets
+    and spans; a code outside its span, or a packed key not in the
+    table, is a miss (counted in res["miss"]: the caller reruns the
+    partition with the sort kind and relearns, so a stale table never
+    shapes a result). A live row's states add into its slot.
+
+    The reference gets int64 states as 7-bit limbs of an int8 one-hot
+    matmul accumulated in int32 (its TPU's MXU form), recombined mod
+    2^64 on the host. Here each state is one int64 column added by
+    index_add_ into [scap, L]: integer adds wrap mod 2^64 in any order,
+    so the states equal the reference's decode bit for bit, with no
+    per-block loop and no limb split. Dead rows add into _SPILL spread
+    spill rows, and a small table is kept in several copies summed at
+    the end (_ONEHOT_SPREAD). -> {"oh_acc": int64 [scap, L] in
+    onehot_agg_layout's columns, "miss": int64 [], "ngroups": nslots}."""
+    dev = mask.device
+    packed = torch.zeros(cap, dtype=INT64, device=dev)
+    okr = torch.ones(cap, dtype=torch.bool, device=dev)
+    for i, g in enumerate(group_items):
+        d, nl, _ = eval_expr(ctx, g)
+        if np.isscalar(d) or getattr(d, "ndim", 1) == 0:
+            d = ctx.xp.full(cap, d)
+        nm = materialize_nulls(ctx, nl)
+        span = sargs["spans"][i]
+        code = torch.where(nm, 0, d.to(INT64) - sargs["los"][i] + 1)
+        # an out-of-span code would alias another packed tuple: a miss
+        okr = okr & (code >= 0) & (code < span)
+        packed = packed * span + torch.minimum(torch.clamp(code, min=0),
+                                               span - 1)
+    sk = sargs["skeys"]
+    locc = torch.clamp(torch.searchsorted(sk, packed), max=scap - 1)
+    hit = (sk[locc] == packed) & okr & (locc < sargs["nslots"][0])
+    miss = (mask & ~hit).sum(dtype=INT64)
+    live = mask & hit
+    cols = []
+    for a in aggs:
+        if a.name not in ("count", "sum", "avg"):
+            raise NotImplementedError(f"onehot lowering over {a.name}")
+        d, ok = _agg_eval_rows(ctx, a, mask, cap)
+        ok = ok & live
+        if a.name != "count":
+            cols.append(torch.where(ok, d.to(INT64), 0))
+        cols.append(ok.to(INT64))
+    cols.append(live.to(INT64))
+    copies = max(1, min(_ONEHOT_COPIES, _ONEHOT_SPREAD // scap))
+    iota = torch.arange(cap, dtype=INT64, device=dev)
+    index = torch.where(live, (iota & (copies - 1)) * scap + locc,
+                        copies * scap + (iota & (_SPILL - 1)))
+    acc = torch.zeros((copies * scap + _SPILL, len(cols)), dtype=INT64,
+                      device=dev)
+    acc.index_add_(0, index, torch.stack(cols, 1))
+    acc = acc[:copies * scap].view(copies, scap, len(cols)).sum(0)
+    return {"oh_acc": acc, "miss": miss, "ngroups": sargs["nslots"][0]}
+
+
+def onehot_decode_states(acc, aggs, nslots):
+    """Host side: the one-hot accumulator (a host int64 [scap, L] array)
+    -> (states, row count per slot), the first nslots slots; the states
+    in _segscan_states' layout (count -> [cnt]; sum/avg -> [s, cnt])."""
+    states = [[None] * (2 if a.name in ("sum", "avg") else 1) for a in aggs]
+    rowcnt = None
+    for j, (ai, sj) in enumerate(onehot_agg_layout(aggs)):
+        col = np.ascontiguousarray(acc[:nslots, j])
+        if ai < 0:
+            rowcnt = col
+        else:
+            states[ai][sj] = col
+    return states, rowcnt
 
 
 def sorted_run_starts(kvecs, min_rows=1024):

@@ -60,9 +60,34 @@ uploads nothing.
 A shape the device rule (expression/torch_ns.device_form) sends to the
 host, as the reference's failed trace does, is declined before dispatch
 with last_fused_reason "host-bound shape: ..." so the executor takes its
-counted host path. The reference's one-hot aggregation, its device top-N
-candidate selection and its early compaction of fact-filter survivors
-(ecap) are learned speed-ups that give the same rows and are not ported.
+counted host path.
+
+On one device three more programs are learned, as the reference learns
+them (each a rerun of a partition whose result shows the learned state
+wrong, never a fallback; the mesh takes none of them):
+
+  early compaction    a pipeline with dims whose fact filters keep at
+                      most 1/8 of a partition gathers their survivors
+                      into a learned ecap-row buffer before the probes
+                      (Q4, Q12, Q14, Q19, Q22); res["fnvalid"] reruns a
+                      partition that overflowed it (counted as the late
+                      compaction's rerun, fused_compact_regrow)
+  top-N candidates    ORDER BY ... LIMIT k over a runs-lowered group-by
+                      anchored on a clustered fact column (Q3) returns
+                      k + 66 candidate partials per partition
+                      (_topn_select) instead of every group; a cover
+                      proof that fails pins the shape off
+                      (fused_topn_off)
+  one-hot slots       a group domain that is neither dense nor a join
+                      position, under count and int64 sum/avg, learns
+                      its slot table from a sort-kind statement
+                      (_oh_learn_table) and then adds each row's states
+                      into its slot (dag_exec.onehot_agg_body, over the
+                      sort kind's compact capacity; Q7, Q8, Q9, Q11,
+                      Q15, Q21 at SF1 on the card); a key the table
+                      lacks reruns the partition with the sort kind
+                      (fused_onehot_miss) and relearns. On the CPU only
+                      under TIDB_TPU_ONEHOT_FORCE.
 
 With a mesh (the planner's fragment_plan flagged the pipeline mpp, and
 the executor found tidb_enable_mpp on and two or more shards), the
@@ -79,6 +104,7 @@ sides all_to_all'd by join key, joined and aggregated per shard, psum.
 """
 from __future__ import annotations
 
+import os
 import re
 import threading
 from collections import OrderedDict
@@ -93,6 +119,7 @@ from ..expression.vec import materialize_nulls
 from ..expression.torch_ns import device_form
 from ..chunk.device import shape_bucket
 from ..utils.torchcfg import INT64
+from ..types.field_type import TypeClass
 from . import dag_exec as _de
 from .dag_exec import (PartialAggResult, capture_agg_dicts, _dense_strides,
                        dense_agg_body, dense_agg_states,
@@ -852,6 +879,141 @@ def _apply_dims(ctx, cols, mask, dims, dargs, dim_caps, dim_ns, dim_sns,
     return ctx, mask, dim_pos
 
 
+def _fused_topn_state(copr, plan, fact_tbl, offk, kd, sd):
+    """The planner's topn_spec (kind, index, desc, k), checked against
+    the data -> the spec, or None. Top-k candidates over per-run
+    partials are exact only when each group lives in at most one partial
+    per partition, which takes:
+    - an anchor group item: a fact column whose storage order is
+      verified monotone (ColumnarTable.is_clustered): equal keys are
+      adjacent, and a partition edge splits at most one group;
+    - every other group item a function of columns reachable from the
+      anchor through inner/left dims probed by what is reached already
+      (constant within a run);
+    - an integer metric without a dictionary (the device's candidates
+      and the host's cover proof compare it exactly)."""
+    spec = getattr(plan, "topn_spec", None)
+    if spec is None or copr._host_cache.get(offk):
+        return None
+    kind, ai, _desc, _k = spec
+    if kind == "agg":
+        if ai >= len(plan.aggs):
+            return None
+        a = plan.aggs[ai]
+        if a.name not in ("sum", "count", "min", "max"):
+            return None
+        if a.args and (a.args[0].ft.tclass == TypeClass.FLOAT or
+                       sd[ai] is not None):
+            return None
+    else:
+        if ai >= len(plan.group_items):
+            return None
+        if kd[ai] is not None or \
+                plan.group_items[ai].ft.tclass == TypeClass.FLOAT:
+            return None
+    cid_by_idx = {}
+    for sc in plan.fact_dag.cols:
+        cid = _cid_of(plan.fact_dag, sc)
+        if cid != -1:
+            cid_by_idx[sc.col.idx] = cid
+    anchor = next((g.idx for g in plan.group_items
+                   if isinstance(g, ExprColumn) and g.idx in cid_by_idx
+                   and fact_tbl.is_clustered(cid_by_idx[g.idx])), None)
+    if anchor is None:
+        return None
+    closure = {anchor}
+    for _ in range(len(plan.dims) + 1):
+        grew = False
+        for dim in plan.dims:
+            if dim.join_type in ("semi", "anti"):
+                continue
+            pidx = set()
+            for _, pe in dim.all_keys():
+                pidx |= _expr_idxs(pe)
+            if pidx and pidx <= closure:
+                for sc in dim.dag.cols:
+                    if sc.col.idx not in closure:
+                        closure.add(sc.col.idx)
+                        grew = True
+        if not grew:
+            break
+    for g in plan.group_items:
+        gi = _expr_idxs(g)
+        if not gi or not gi <= closure:
+            return None
+    return spec
+
+
+def _topn_metric_host(spec, aggs, keys, key_nulls, states):
+    """Numpy twin of _topn_select's metric (larger is better) for the
+    cover proof; the formula must stay the same as there."""
+    kind, ai, desc, _k = spec
+    if kind == "group":
+        v = np.asarray(keys[ai]).astype(np.int64)
+        nul = np.asarray(key_nulls[ai])
+    else:
+        st = states[ai]
+        v = np.asarray(st[0]).astype(np.int64)
+        nul = (np.asarray(st[-1]) == 0) if aggs[ai].name != "count" \
+            else np.zeros(len(v), dtype=bool)
+    m = v if desc else ~v      # ~v = -v - 1: reverses the order, no wrap
+    # the ends of the range are the NULL / empty / forced markers: a
+    # metric there clamps, and the tie that makes falls to the cover
+    # proof's safe verdict (off), never onto a marker
+    m = np.clip(m, -_I64_MAX + 2, _I64_MAX - 2)
+    # MySQL's NULL order: first ascending (best), last descending
+    return np.where(nul, (-_I64_MAX) if desc else (_I64_MAX - 1), m)
+
+
+def _topn_select(res, aggs, topn, bucket):
+    """Top-N candidates over the sort kind's partials, on the device:
+    the int64 metric (larger is better, as _topn_metric_host), empty
+    slots last, and runs 0 and ngroups - 1 (whose groups may go on in
+    the next or previous partition) forced first, so the host merge
+    always sees both halves of a split group. -> the result with every
+    key and state gathered to the k' selected partials, plus "sel",
+    their run ordinals. The reference selects with lax.top_k, which
+    breaks ties by the lower index; torch.topk promises no tie order,
+    so the selection is a stable ascending sort of ~m: the same order,
+    so the same sel."""
+    kind, ai, desc, kprime = topn
+    ng = res["ngroups"]
+    if kind == "group":
+        v = res["keys"][ai].to(INT64)
+        nul = res["key_nulls"][ai]
+    else:
+        st = res["states"][ai]
+        v = st[0].to(INT64)
+        nul = (st[-1] == 0) if aggs[ai].name != "count" else \
+            torch.zeros(v.shape, dtype=torch.bool, device=v.device)
+    m = v if desc else torch.bitwise_not(v)
+    m = torch.clamp(m, -_I64_MAX + 2, _I64_MAX - 2)
+    m = torch.where(nul, -_I64_MAX if desc else _I64_MAX - 1, m)
+    iota = torch.arange(bucket, dtype=INT64, device=v.device)
+    m = torch.where(iota < ng, m, -_I64_MAX - 1)
+    m = torch.where((iota == 0) | (iota == ng - 1), _I64_MAX, m)
+    sel = torch.sort(torch.bitwise_not(m), stable=True).indices[:kprime]
+    out = {"ngroups": ng, "sel": sel,
+           "keys": [k[sel] for k in res["keys"]],
+           "key_nulls": [kn[sel] for kn in res["key_nulls"]],
+           "states": [[s[sel] for s in st] for st in res["states"]]}
+    if "nvalid" in res:
+        out["nvalid"] = res["nvalid"]
+    return out
+
+
+def _topn_covered(spec, aggs, keys, key_nulls, states, sel, ngroups):
+    """The cover proof of a partition's candidates (host arrays, the
+    first min(ngroups, k') of them): at least k complete candidates
+    rank strictly above the candidates' lowest metric, so no partial
+    left out can reach the top k. Only complete groups count: a forced
+    edge run's metric is not its merged total, so it vouches for
+    nothing."""
+    real_m = _topn_metric_host(spec, aggs, keys, key_nulls, states)
+    mnf = real_m[~((sel == 0) | (sel == ngroups - 1))]
+    return len(mnf) > 0 and int((mnf > mnf.min()).sum()) >= spec[3]
+
+
 def _pos_group_map(plan, dim_metas):
     """Group-by-FK detection: when every group item is either a column of
     an (inner, unique) dimension or the probe key of one, the join
@@ -915,24 +1077,54 @@ def _compact_pos_dense(res, group_map, pos_dims, dim_metas, sd):
                             key_dicts=key_dicts, state_dicts=sd)
 
 
+def _compact_cols(cols, csum, cap, ccap):
+    """Gather the rows under a mask into a ccap-row buffer, in order:
+    `csum` is the mask's cumulative count over the cap rows, so output
+    row j is the row where it first reaches j + 1 (searchsorted; rows
+    past the count repeat the last row and are masked out by the
+    caller). -> the columns {idx: (data, nulls, sdict)} at ccap rows."""
+    src = torch.clamp(torch.searchsorted(csum, torch.arange(
+        1, ccap + 1, dtype=INT64, device=csum.device)), max=cap - 1)
+    return {k: (d[src], nl[src] if isinstance(nl, torch.Tensor) else nl,
+                sd) for k, (d, nl, sd) in cols.items()}
+
+
 def _make_pipeline_body(plan, fact_cap, fact_sdicts, dim_caps, dim_ns,
                         dim_sns, dim_layouts, dim_pres, agg_kind, agg_param,
-                        xp):
+                        xp, ecap=None, want_fnvalid=True):
     """The fragment callable: filter the fact partition -> dim probes and
     gathers -> post filters -> partial aggregation. fact_cap is the
     partition capacity, xp the TorchNS of the copr's device; dim_ns are
     the dims' row counts, dim_sns their valid sorted-key counts (the
     searchsorted bound). agg_kind "dense" takes the group layout
-    `agg_param` (sizes), "posdense" (pos_dims, nslots), "sort" (group
-    bucket, lowering, top-N (always None: not ported), compact capacity
-    or None); a sort result also carries nvalid, the rows that reached
-    the aggregation, from which the caller learns the capacity. The
-    reference's
-    _build_fused_kernel jit-compiles this body; torch runs it eagerly,
-    so there is nothing to build. A zero-dim global aggregation (one
-    slot) whose filters lower to column bounds runs them in
-    range_filter_sums, with its products of two columns folded in
-    (dag_exec.fold_pairs)."""
+    `agg_param` (sizes), "posdense" (pos_dims, nslots), "onehot" (slot
+    table capacity, compact capacity or None) with the learned slot
+    table as the argument after the dims' (dag_exec.onehot_agg_body),
+    "sort" (group bucket, lowering, top-N candidates or None, compact
+    capacity or None); a result of either with a compact capacity
+    carries nvalid, the rows that reached the aggregation, from which
+    the caller learns or regrows the capacity (the sort kind's always
+    does). The reference's one-hot program runs at the partition's
+    rows; here it takes the sort kind's learned compact capacity too,
+    as its rows are the sort kind's: Q7's survivors of five probes are
+    a few thousand of 4,194,304, and packing and looking up every row's
+    keys cost an H100 ~3 ms more device time per SF1 statement than the
+    sort kind over the compacted rows (chip_smoke.py phase_programs). A
+    top-N tuple (kind, index, desc, k') makes the sort kind return only
+    k' candidate partials (_topn_select).
+
+    ecap (early compaction): the rows that pass the fact filters are
+    gathered into an ecap-row buffer before the probes, so the probes,
+    post filters and aggregation run at ecap rows, not the partition's
+    (Q14's and Q19's one-month or few-part filters keep 1-3 % of
+    lineitem); want_fnvalid adds res["fnvalid"], the rows that passed
+    the fact filters, from which the caller learns ecap and reruns a
+    partition whose survivors overflowed it (the mesh program leaves it
+    out, as the reference's does). The reference's _build_fused_kernel
+    jit-compiles this body; torch runs it eagerly, so there is nothing
+    to build. A zero-dim global aggregation (one slot) whose filters
+    lower to column bounds runs them in range_filter_sums, with its
+    products of two columns folded in (dag_exec.fold_pairs)."""
     fact_filters = list(plan.fact_dag.filters)
     dims = list(plan.dims)
     post = list(plan.post_filters)
@@ -947,16 +1139,32 @@ def _make_pipeline_body(plan, fact_cap, fact_sdicts, dim_caps, dim_ns,
 
     def body(fjc, fvv, dargs):
         cap = fact_cap
+        dev = xp.device
         cols = {k: (d, nl, fact_sdicts[k]) for k, (d, nl) in fjc.items()}
         ctx = EvalCtx(xp, cap, cols, host=False)
         mask = fvv
         if ranges is not None:
             for f in ranges.rest:
                 mask = mask & eval_bool_mask(ctx, f)
-            return dense_agg_states_range(ctx, mask, aggs, ranges, cap,
-                                          folds)
+            res = dense_agg_states_range(ctx, mask, aggs, ranges, cap,
+                                         folds)
+            if want_fnvalid:
+                # no dims, no post filters: the kernel's count is the
+                # fact filters' survivors
+                res["fnvalid"] = res["present"][0]
+            return res
         for f in fact_filters:
             mask = mask & eval_bool_mask(ctx, f)
+        fnvalid = None
+        if ecap is not None:
+            csum0 = torch.cumsum(mask.to(INT64), 0)
+            fnvalid = csum0[cap - 1]
+            cols = _compact_cols(cols, csum0, cap, ecap)
+            cap = ecap
+            mask = torch.arange(ecap, dtype=INT64, device=dev) < fnvalid
+            ctx = EvalCtx(xp, cap, cols, host=False)
+        elif want_fnvalid:
+            fnvalid = mask.sum(dtype=INT64)
         ctx, mask, dim_pos = _apply_dims(ctx, cols, mask, dims, dargs,
                                          dim_caps, dim_ns, dim_sns,
                                          dim_layouts, dim_pres, cap)
@@ -964,36 +1172,44 @@ def _make_pipeline_body(plan, fact_cap, fact_sdicts, dim_caps, dim_ns,
             mask = mask & eval_bool_mask(ctx, f)
         if agg_kind == "posdense":
             pos_dims, nslots = agg_param
-            slot = torch.zeros(cap, dtype=INT64, device=xp.device)
+            slot = torch.zeros(cap, dtype=INT64, device=dev)
             for di in pos_dims:
                 slot = slot * dim_ns[di] + dim_pos[di]
             slot = torch.where(mask, slot, nslots)
-            return dense_agg_states(ctx, mask, aggs, slot, nslots, cap)
-        if agg_kind == "dense":
-            return dense_agg_body(ctx, mask, group_items, aggs, agg_param,
-                                  cap)
-        gb, agg_impl, _topn, ccap = agg_param
-        csum = torch.cumsum(mask.to(INT64), 0)
-        nvalid = csum[cap - 1]
-        if ccap is not None:
-            # compact, then aggregate: the rows that passed are gathered
-            # in order into a learned ccap-row buffer (cumsum +
-            # searchsorted + gather), so a selective pipeline's sort or
-            # runs pass pays for its survivors, not the partition. The
-            # caller reruns with a larger ccap when nvalid exceeds it.
-            dev = xp.device
-            src = torch.clamp(torch.searchsorted(csum, torch.arange(
-                1, ccap + 1, dtype=INT64, device=dev)), max=cap - 1)
-            ccols = {k: (d[src], nl[src] if isinstance(nl, torch.Tensor)
-                         else nl, sd) for k, (d, nl, sd) in ctx.cols.items()}
-            res = sort_agg_body(
-                EvalCtx(xp, ccap, ccols, host=False),
-                torch.arange(ccap, dtype=INT64, device=dev) < nvalid,
-                group_items, aggs, ccap, gb, impl=agg_impl)
+            res = dense_agg_states(ctx, mask, aggs, slot, nslots, cap)
+        elif agg_kind == "dense":
+            res = dense_agg_body(ctx, mask, group_items, aggs, agg_param,
+                                 cap)
         else:
-            res = sort_agg_body(ctx, mask, group_items, aggs, cap, gb,
-                                impl=agg_impl)
-        res["nvalid"] = nvalid
+            # the sort kind and the one-hot slots: with a compact
+            # capacity the rows that passed are first gathered into a
+            # learned ccap-row buffer, so a selective pipeline's
+            # aggregation pays for its survivors, not the partition; the
+            # caller reruns with a larger ccap when nvalid exceeds it
+            ccap = agg_param[-1]
+            acap, nvalid = cap, None
+            if ccap is not None or agg_kind == "sort":
+                csum = torch.cumsum(mask.to(INT64), 0)
+                nvalid = csum[cap - 1]
+            if ccap is not None:
+                ctx = EvalCtx(xp, ccap, _compact_cols(ctx.cols, csum, cap,
+                                                      ccap), host=False)
+                mask = torch.arange(ccap, dtype=INT64, device=dev) < nvalid
+                acap = ccap
+            if agg_kind == "onehot":
+                res = _de.onehot_agg_body(ctx, mask, group_items, aggs,
+                                          acap, agg_param[0],
+                                          dargs[len(dims)])
+            else:
+                gb, agg_impl, topn, _ccap = agg_param
+                res = sort_agg_body(ctx, mask, group_items, aggs, acap, gb,
+                                    impl=agg_impl)
+            if nvalid is not None:
+                res["nvalid"] = nvalid
+            if agg_kind == "sort" and topn is not None:
+                res = _topn_select(res, aggs, topn, gb)
+        if fnvalid is not None:
+            res["fnvalid"] = fnvalid
         return res
     return body
 
@@ -1118,6 +1334,241 @@ def _delta_in_span(shim, sizes, delta_part):
     return True
 
 
+# one-hot slot tables apply to partitions of at most this many rows:
+# the reference's guard for its int32 limb sums (cap * 127 < 2^31),
+# kept so that both packages pick the same program for a partition
+# (the int64 sums here are exact at any size)
+_ONEHOT_CAP = 1 << 23
+
+
+def _oh_eligible(copr, ohk, plan, one, pos_spec, sizes, delta_rows):
+    """Does this statement learn and use a one-hot slot table (a group
+    domain that is neither dense nor a join position, no uncommitted
+    rows, only count and sum/avg of int64 arguments)? On the card as
+    the reference's device rule says; on the CPU only when
+    TIDB_TPU_ONEHOT_FORCE is set, as the reference's CPU backend."""
+    if not plan.group_items or pos_spec is not None or \
+            sizes is not None or delta_rows:
+        return False
+    if copr._host_cache.get(ohk) is False:
+        return False
+    if copr.device.type != "cuda" and \
+            not os.environ.get("TIDB_TPU_ONEHOT_FORCE"):
+        return False
+    for a in plan.aggs:
+        if a.name == "count":
+            continue
+        if a.name not in ("sum", "avg"):
+            return False
+        try:
+            d1, _nl, _sd = eval_expr(EvalCtx(np, 1, one, host=True),
+                                     a.args[0])
+        except Exception:                   # noqa: BLE001
+            return False
+        dt = getattr(d1, "dtype", None)
+        if dt is None or dt.kind != "i":
+            return False            # the slot sums are int64 only
+    return True
+
+
+def _oh_learn_table(copr, ohk, plan, oh_learn, rows=0, version=None):
+    """Learn the one-hot slot table from a sort-kind execution's
+    partials (oh_learn: per partition, its key and NULL columns): the
+    union of the group keys, packed with offsets and spans chosen here
+    (the fragment range-checks each code, so a later out-of-span value
+    is a miss, never an alias), as sorted packed keys with the key
+    columns of each slot. `rows` and `version` are the fact coverage
+    watermark (the snapshot's row count, the version read before it),
+    from which _oh_fold_delta extends the table. A shape it cannot
+    represent (non-integer keys, keys over int63, a pack of 61 bits or
+    more, more than dag_exec._ONEHOT_MAX slots) pins it off."""
+    K = len(plan.group_items)
+    kcols = [np.concatenate([e[0][i] for e in oh_learn]) for i in range(K)]
+    knulls = [np.concatenate([e[1][i] for e in oh_learn]) for i in range(K)]
+    # spans first, and refuse before packing: a full-range key would
+    # overflow the int64 pack
+    los, spans = [], []
+    total_bits = 0.0
+    for i in range(K):
+        vals = kcols[i]
+        if vals.dtype.kind not in "iu":
+            copr._host_cache[ohk] = False
+            return
+        nn = vals[~knulls[i]]
+        lo = int(nn.min()) if len(nn) else 0
+        hi = int(nn.max()) if len(nn) else 0
+        if vals.dtype.kind == "u" and (lo > _I64_MAX or hi > _I64_MAX):
+            copr._host_cache[ohk] = False
+            return
+        span = hi - lo + 2
+        total_bits += np.log2(max(span, 1))
+        los.append(lo)
+        spans.append(span)
+    if total_bits >= 61.0:
+        copr._host_cache[ohk] = False
+        return
+    packed = np.zeros(len(kcols[0]), dtype=np.int64)
+    for i in range(K):
+        code = np.where(knulls[i], 0, kcols[i].astype(np.int64) - los[i] + 1)
+        packed = packed * spans[i] + code
+    uniq, idx = np.unique(packed, return_index=True)
+    nslots = len(uniq)
+    if nslots == 0 or nslots > _de._ONEHOT_MAX:
+        copr._host_cache[ohk] = False
+        return
+    scap = 128
+    while scap < nslots:
+        scap <<= 1
+    skeys = np.full(scap, _I64_MAX, dtype=np.int64)
+    skeys[:nslots] = uniq
+    table = {"skeys": skeys, "los": np.asarray(los, dtype=np.int64),
+             "spans": np.asarray(spans, dtype=np.int64),
+             "nslots": nslots, "scap": scap,
+             "key_vals": [kcols[i][idx] for i in range(K)],
+             "key_nulls": [knulls[i][idx] for i in range(K)],
+             "rows": rows, "version": version}
+    # resident from the statement that learned it: the next statement
+    # dispatches it without an upload
+    _oh_device(copr, table)
+    copr._host_cache[ohk] = table
+
+
+def _oh_device(copr, table):
+    """The slot table's device copy ({"skeys", "los", "spans",
+    "nslots"}), uploaded on first use and kept in the table (a table is
+    replaced whole, never changed in place)."""
+    dev = table.get("dev")
+    if dev is None:
+        arrays = {"skeys": table["skeys"], "los": table["los"],
+                  "spans": table["spans"],
+                  "nslots": np.asarray([table["nslots"]], dtype=np.int64)}
+        dev = {k: copr._upload_padded(a, len(a)) for k, a in arrays.items()}
+        table["dev"] = dev
+    return dev
+
+
+def _oh_tail_keys(plan, fact_arrays, lo, hi):
+    """The group-key columns of fact rows [lo, hi), evaluated on the
+    host: the delta fold's input. None when a group item reaches past
+    the fact columns (a dim's keys: the fold cannot see those rows'
+    probes; the dispatch-time miss covers them)."""
+    cols = {}
+    for sc in plan.fact_dag.cols:
+        cid = _cid_of(plan.fact_dag, sc)
+        if cid == -1:
+            continue
+        data, nulls, sdict = fact_arrays[cid]
+        cols[sc.col.idx] = (data[lo:hi],
+                            None if nulls is None else nulls[lo:hi], sdict)
+    m = hi - lo
+    ectx = EvalCtx(np, m, cols, host=True)
+    kcols, knulls = [], []
+    try:
+        for g in plan.group_items:
+            d, nl, _sd = eval_expr(ectx, g)
+            if np.isscalar(d) or getattr(d, "ndim", 1) == 0:
+                d = np.full(m, d)
+            d = np.asarray(d)
+            if d.dtype.kind not in "iu":
+                return None
+            kcols.append(d.astype(np.int64))
+            knulls.append(np.asarray(materialize_nulls(ectx, nl)))
+    except Exception:                       # noqa: BLE001
+        return None
+    return kcols, knulls
+
+
+def _oh_fold_delta(copr, ohk, plan, fact_arrays, n, version):
+    """Fold the keys of fact rows appended since a slot table was
+    learned (rows [table rows, n)) into it before a dispatch binds it:
+    a new key inside the spans becomes a new slot (counted
+    fused_onehot_delta_fold), an append of known keys only moves the
+    watermark. A key outside the spans, or more slots than
+    dag_exec._ONEHOT_MAX, drops the table for a relearn
+    (fused_onehot_rebuild)."""
+    OH = copr._host_cache.get(ohk)
+    if not isinstance(OH, dict) or OH.get("version") == version:
+        return
+    dom = getattr(copr, "domain", None)
+    rows = OH.get("rows", 0)
+    if n <= rows:
+        # deletes and updates leave tombstones: the slots stand, and a
+        # slot without rows drops when the partials are read
+        OH["version"] = version
+        return
+    tail = _oh_tail_keys(plan, fact_arrays, rows, n)
+    if tail is None:
+        return
+    kcols, knulls = tail
+    los, spans = OH["los"], OH["spans"]
+    packed = np.zeros(n - rows, dtype=np.int64)
+    for i in range(len(plan.group_items)):
+        v, live = kcols[i], ~knulls[i]
+        if live.any() and (int(v[live].min()) < int(los[i]) or
+                           int(v[live].max()) > int(los[i]) +
+                           int(spans[i]) - 2):
+            copr._host_cache.pop(ohk, None)
+            if dom is not None:
+                dom.inc_metric("fused_onehot_rebuild")
+            return
+        code = np.where(knulls[i], 0, v - int(los[i]) + 1)
+        packed = packed * int(spans[i]) + code
+    nslots = OH["nslots"]
+    uniq, first = np.unique(packed, return_index=True)
+    fresh = ~np.isin(uniq, OH["skeys"][:nslots])
+    if not fresh.any():
+        OH["rows"], OH["version"] = n, version
+        return
+    merged = np.concatenate([OH["skeys"][:nslots], uniq[fresh]])
+    order = np.argsort(merged, kind="stable")
+    nnew = len(merged)
+    if nnew > _de._ONEHOT_MAX:
+        copr._host_cache[ohk] = False
+        if dom is not None:
+            dom.inc_metric("fused_onehot_rebuild")
+        return
+    scap = OH["scap"]
+    while scap < nnew:
+        scap <<= 1
+    skeys = np.full(scap, _I64_MAX, dtype=np.int64)
+    skeys[:nnew] = merged[order]
+    fidx = first[fresh]
+    key_vals, key_nulls = [], []
+    for i in range(len(plan.group_items)):
+        kv = np.concatenate([OH["key_vals"][i], kcols[i][fidx].astype(
+            OH["key_vals"][i].dtype, copy=False)])
+        kn = np.concatenate([OH["key_nulls"][i], knulls[i][fidx]])
+        key_vals.append(kv[order])
+        key_nulls.append(kn[order])
+    # a new table, not an edit: a dispatch in flight keeps its own
+    copr._host_cache[ohk] = {
+        "skeys": skeys, "los": los, "spans": spans, "nslots": nnew,
+        "scap": scap, "key_vals": key_vals, "key_nulls": key_nulls,
+        "rows": n, "version": version}
+    if dom is not None:
+        dom.inc_metric("fused_onehot_delta_fold")
+
+
+def _oh_drop_empty(out, oh_parts):
+    """Drop the slots no one-hot partition had a row in (oh_parts: (index
+    in out, rows per slot)): a learned key with no row left (deletes, an
+    older read ts) must not become a phantom group; a key seen only in a
+    sort-kind partial merges as usual."""
+    total = np.zeros(len(oh_parts[0][1]), dtype=np.int64)
+    for _i, rc in oh_parts:
+        total += rc
+    if not (total == 0).any():
+        return
+    keep = np.nonzero(total > 0)[0]
+    for i, _rc in oh_parts:
+        p0 = out[i]
+        out[i] = PartialAggResult(
+            ngroups=len(keep), keys=[k[keep] for k in p0.keys],
+            key_nulls=[kn[keep] for kn in p0.key_nulls],
+            states=[[s[keep] for s in st] for st in p0.states],
+            key_dicts=p0.key_dicts, state_dicts=p0.state_dicts)
+
+
 def fused_partials(copr, plan, read_ts, mesh=None,
                    bcast_threshold=1 << 20, ctx=None, delta_rows=None,
                    dead_handles=None):
@@ -1207,6 +1658,9 @@ def _fused_partials_inner(copr, plan, read_ts, mesh=None,
     kd, sd = capture_agg_dicts(shim, one)
     pos_spec = _pos_group_map(plan, dim_metas)
 
+    # the version BEFORE the snapshot: the one-hot table's coverage
+    # watermark must never claim rows the snapshot did not hold
+    fact_version = fact_tbl.version
     fact_arrays, fact_valid = fact_tbl.snapshot(
         [cid for cid in (_cid_of(plan.fact_dag, sc)
                          for sc in plan.fact_dag.cols) if cid != -1],
@@ -1293,22 +1747,35 @@ def _fused_partials_inner(copr, plan, read_ts, mesh=None,
     fact_sdicts = {k: v[2] for k, v in one.items() if k in fact_idx}
     out = []
     step = copr.device_rows
-    # the sort kind's learned state, per query shape; the lowering pin
-    # and the compact capacity per gc epoch (a compaction that restores
-    # clustering lets a pinned shape try runs again)
+    # the learned state, per query shape: the sort kind's group bucket;
+    # per gc epoch (a compaction that restores clustering lets a pinned
+    # shape try again) its lowering pin, its compact capacity, the early
+    # compaction capacity, the top-N candidates' off pin and the one-hot
+    # slot table
     gbkey = ("gb", fact_tbl.uid,
              tuple(g.fingerprint() for g in plan.group_items),
              tuple(a.fingerprint() for a in plan.aggs))
     implk = ("aggimpl", fact_tbl.gc_epoch) + gbkey
     compk = ("fcompact", fact_tbl.gc_epoch) + gbkey
+    ecapk = ("fecompact", fact_tbl.gc_epoch) + gbkey
+    offk = ("ftopn_off", fact_tbl.gc_epoch) + gbkey
+    ohk = ("onehot", fact_tbl.gc_epoch) + gbkey
     group_bucket = max(1024, copr._host_cache.get(gbkey, 0))
     dom = getattr(copr, "domain", None)
+    # appended rows' keys join a learned slot table before any dispatch
+    # binds it: an append inside the table's spans extends its slots
+    # instead of forcing a miss and a relearn
+    _oh_fold_delta(copr, ohk, plan, fact_arrays, n, fact_version)
     if mesh is not None:
         return _run_fused_mpp(
             copr, plan, mesh, fact_tbl, fact_arrays, fact_valid, n,
             handles, dim_args, dim_metas, dim_caps, dim_ns, dim_sns,
             dim_layouts, dim_pres, fact_sdicts, pos_spec, sizes, shim, kd,
             sd, gbkey, implk, compk, group_bucket, read_ts)
+    ts = _fused_topn_state(copr, plan, fact_tbl, offk, kd, sd)
+    oh_elig = _oh_eligible(copr, ohk, plan, one, pos_spec, sizes,
+                           delta_rows)
+    oh_learn, oh_parts = [], []
 
     def _partitions():
         for start in range(0, n, step):
@@ -1329,24 +1796,45 @@ def _fused_partials_inner(copr, plan, read_ts, mesh=None,
             yield dcols, dv, len(dv), {}
 
     def _dispatch_part(cols, v, m, bind_keys):
-        """Upload + dispatch one fact partition with the lowering learned
+        """Upload + dispatch one fact partition with the programs learned
         so far. -> (result tree with its device->host copies in flight,
-        capacity, agg kind, agg param)."""
+        capacity, agg kind, agg param, early compaction capacity or
+        None, the one-hot slot table or None)."""
         cap = shape_bucket(m)
+        oh_table = None
+        ohv = copr._host_cache.get(ohk)
         if pos_spec is not None:
             agg_kind = "posdense"
             agg_param = (tuple(pos_spec[1]), pos_spec[2])
         elif sizes is not None:
             agg_kind, agg_param = "dense", tuple(sizes)
+        elif isinstance(ohv, dict) and cap <= _ONEHOT_CAP:
+            # the learned slot table travels in the dispatch state: a
+            # sibling partition's miss may pop the cache entry before
+            # this partition is consumed
+            oh_table = ohv
+            ccap = copr._host_cache.get(compk)
+            agg_kind, agg_param = "onehot", (
+                ohv["scap"], ccap if isinstance(ccap, int) else None)
         else:
             agg_kind = "sort"
-            agg_param = _sort_kind_param(copr, compk, implk, group_bucket)
+            agg_param = _sort_kind_param(copr, compk, implk, group_bucket,
+                                         ts, offk)
+        ec = copr._host_cache.get(ecapk)
+        # a zero-dim pipeline never compacts early: after its fact
+        # filters comes one aggregation pass, which the gathers would
+        # cost more than they save (the reference measured Q6 and Q15)
+        ecap = ec if isinstance(ec, int) and ec < cap and plan.dims \
+            else None
+        if ecap is not None and agg_kind in ("sort", "onehot"):
+            # the survivors are compacted already: no late compaction
+            agg_param = agg_param[:-1] + (None,)
 
         def build():
             return _make_pipeline_body(
                 plan, cap, fact_sdicts, tuple(dim_caps), tuple(dim_ns),
                 tuple(dim_sns), tuple(dim_layouts), dim_pres, agg_kind,
-                agg_param, copr.xp)
+                agg_param, copr.xp, ecap=ecap)
         if plan.dims:
             # an eager body with dims builds nothing worth keeping: it is
             # made for each call, so no cache can hand back a stale one
@@ -1355,19 +1843,21 @@ def _fused_partials_inner(copr, plan, read_ts, mesh=None,
             # a zero-dim body holds its range lowering (lower_filters,
             # fold_pairs), worth caching for warm statements
             key = _fused_cache_key(plan, fact_tbl, cap, agg_kind,
-                                   agg_param)
+                                   agg_param, ecap)
             kern = copr._kernel_cache.get(key)
             if kern is None:
                 kern = copr._kernel_cache.put(key, build())
         fjc_full, fvv = copr._pad_upload(cols, v, m, cap,
                                          bind_keys=bind_keys)
         fjc = {k: (d, nl) for k, (d, nl, _) in fjc_full.items()}
+        kargs = dim_args if oh_table is None else \
+            list(dim_args) + [_oh_device(copr, oh_table)]
         # chaos hook: per-partition fragment dispatch. The supervised
         # retry lives one level up (executors.FusedPipelineExec wraps
         # the whole fused_partials call in guarded_dispatch site="fused")
         failpoint.inject("device_guard/fused/kernel")
-        return (prefetch(run_fragment(kern, fjc, fvv, dim_args)), cap,
-                agg_kind, agg_param)
+        return (prefetch(run_fragment(kern, fjc, fvv, kargs)), cap,
+                agg_kind, agg_param, ecap, oh_table)
 
     def _relearn(metric, cols, v, m, bind_keys):
         if dom is not None:
@@ -1375,14 +1865,56 @@ def _fused_partials_inner(copr, plan, read_ts, mesh=None,
         return _dispatch_part(cols, v, m, bind_keys)
 
     def _consume(state, cols, v, m, bind_keys):
+        """Read one partition's result into `out`, first rerunning it
+        while what it shows changes a learned program: early compaction
+        that overflowed, a one-hot miss, the sort kind's regrows and
+        pins, top-N candidates that cannot prove their cover. A rule on
+        the shape of the data, not a fallback."""
         nonlocal group_bucket
         while True:
-            res, cap, agg_kind, agg_param = state
+            res, cap, agg_kind, agg_param, ecap, oh_table = state
+            # fnvalid counts the fact filters' survivors before any
+            # compaction lost one: a run that overflowed ecap is wrong
+            # and is not read
+            if _compact_policy(copr, ecapk, ecap, host_int(res["fnvalid"]),
+                               cap) == "retry":
+                state = _relearn("fused_compact_regrow", cols, v, m,
+                                 bind_keys)
+                continue
+            if ecap is not None and dom is not None:
+                dom.inc_metric("fused_ecap_run")
             if agg_kind == "posdense":
-                return _compact_pos_dense(res, pos_spec[0], pos_spec[1],
-                                          dim_metas, sd)
+                out.append(_compact_pos_dense(res, pos_spec[0], pos_spec[1],
+                                              dim_metas, sd))
+                return
             if agg_kind == "dense":
-                return _compact_dense(shim, res, sizes, kd, sd)
+                out.append(_compact_dense(shim, res, sizes, kd, sd))
+                return
+            if agg_kind == "onehot":
+                if agg_param[1] is not None and _compact_policy(
+                        copr, compk, agg_param[1], host_int(res["nvalid"]),
+                        cap) == "retry":
+                    state = _relearn("fused_compact_regrow", cols, v, m,
+                                     bind_keys)
+                    continue
+                if host_int(res["miss"]) > 0:
+                    # keys the table lacks (new or changed data): the
+                    # sort kind reruns the partition and relearns
+                    copr._host_cache.pop(ohk, None)
+                    state = _relearn("fused_onehot_miss", cols, v, m,
+                                     bind_keys)
+                    continue
+                if dom is not None:
+                    dom.inc_metric("fused_onehot_agg")
+                states, rowcnt = _de.onehot_decode_states(
+                    host_array(res["oh_acc"]), plan.aggs, oh_table["nslots"])
+                oh_parts.append((len(out), rowcnt))
+                out.append(PartialAggResult(
+                    ngroups=oh_table["nslots"],
+                    keys=[k.copy() for k in oh_table["key_vals"]],
+                    key_nulls=[kn.copy() for kn in oh_table["key_nulls"]],
+                    states=states, key_dicts=kd, state_dicts=sd))
+                return
             ngroups = host_int(res["ngroups"])
             if _compact_policy(copr, compk, agg_param[3],
                                host_int(res["nvalid"]), cap) == "retry":
@@ -1391,8 +1923,7 @@ def _fused_partials_inner(copr, plan, read_ts, mesh=None,
                 continue
             # unclustered group keys pin this query shape to the sorted
             # lowering before an inflated bucket is learned; more groups
-            # than the bucket THIS fragment ran with dropped groups. A
-            # rule on the shape of the data, not a fallback
+            # than the bucket THIS fragment ran with dropped groups
             rerun = _de.learn_sort_kind(copr._host_cache, gbkey, implk,
                                         agg_param[1], agg_param[0],
                                         ngroups, m)
@@ -1401,14 +1932,40 @@ def _fused_partials_inner(copr, plan, read_ts, mesh=None,
                                    copr._host_cache.get(gbkey, 0))
                 state = _relearn("fused_" + rerun, cols, v, m, bind_keys)
                 continue
-            return PartialAggResult(
-                ngroups=ngroups,
-                keys=[host_array(k)[:ngroups] for k in res["keys"]],
-                key_nulls=[host_array(kn)[:ngroups]
-                           for kn in res["key_nulls"]],
-                states=[[host_array(s)[:ngroups] for s in st]
-                        for st in res["states"]],
-                key_dicts=kd, state_dicts=sd)
+            topn = agg_param[2]
+            nread = ngroups if topn is None else min(ngroups, topn[3])
+            ks = [host_array(k)[:nread] for k in res["keys"]]
+            kns = [host_array(kn)[:nread] for kn in res["key_nulls"]]
+            sts = [[host_array(s)[:nread] for s in st]
+                   for st in res["states"]]
+            if topn is not None:
+                if ngroups > topn[3] and not _topn_covered(
+                        ts, plan.aggs, ks, kns, sts,
+                        host_array(res["sel"])[:nread], ngroups):
+                    # ties at the candidates' edge could hide a true
+                    # top-k group: this query shape fetches every
+                    # partial from now on
+                    copr._host_cache[offk] = True
+                    state = _relearn("fused_topn_off", cols, v, m,
+                                     bind_keys)
+                    continue
+                if dom is not None:
+                    dom.inc_metric("fused_topn_cand")
+            elif oh_elig and copr._host_cache.get(ohk) is None:
+                # runs partials may repeat a key once per run, so the
+                # slot limit applies after the union dedupes
+                # (_oh_learn_table); the cumulative bound caps the
+                # staged host copies
+                if sum(len(e[0][0]) for e in oh_learn) + ngroups > \
+                        (1 << 21):
+                    copr._host_cache[ohk] = False
+                    oh_learn.clear()
+                else:
+                    oh_learn.append((ks, kns))
+            out.append(PartialAggResult(
+                ngroups=nread, keys=ks, key_nulls=kns, states=sts,
+                key_dicts=kd, state_dicts=sd))
+            return
 
     # partition pipelining: partition i+1's padding/upload/dispatch is
     # issued BEFORE partition i's results are consumed, so the card
@@ -1419,9 +1976,15 @@ def _fused_partials_inner(copr, plan, read_ts, mesh=None,
         pending.append((_dispatch_part(*part), part))
         if len(pending) >= _PIPELINE_DEPTH:
             state, part0 = pending.pop(0)
-            out.append(_consume(state, *part0))
+            _consume(state, *part0)
     for state, part0 in pending:
-        out.append(_consume(state, *part0))
+        _consume(state, *part0)
+    if oh_parts:
+        _oh_drop_empty(out, oh_parts)
+    if oh_elig and oh_learn and len(oh_learn) == len(out) and \
+            copr._host_cache.get(ohk) is None:
+        _oh_learn_table(copr, ohk, plan, oh_learn, rows=n,
+                        version=fact_version)
     return out
 
 
@@ -1433,13 +1996,23 @@ def run_fragment(kern, fjc, fvv, dargs):
     return _de.run_fragment(kern, fjc, fvv, dargs)
 
 
-def _sort_kind_param(copr, compk, implk, group_bucket):
+def _sort_kind_param(copr, compk, implk, group_bucket, ts=None,
+                     offk=None):
     """The sort kind's parameters as learned so far: (group bucket,
-    lowering, top-N (not ported: None), compact capacity or None)."""
+    lowering, top-N candidates or None, compact capacity or None).
+    Candidates (ts: _fused_topn_state's spec, k' = k + 66 of them) are
+    sound only under the runs lowering, whose partials come in storage
+    order, so the groups a partition edge may split are runs 0 and
+    ngroups - 1, which _topn_select forces in; and only with a bucket of
+    at least k + 2, below which the cover proof can never pass."""
     ccap = copr._host_cache.get(compk)
-    return (group_bucket,
-            copr._host_cache.get(implk) or _segment_impl(copr.device),
-            None, ccap if isinstance(ccap, int) else None)
+    impl = copr._host_cache.get(implk) or _segment_impl(copr.device)
+    topn = None
+    if ts is not None and impl == "runs" and group_bucket >= ts[3] + 2 \
+            and not copr._host_cache.get(offk):
+        topn = (ts[0], ts[1], ts[2], min(ts[3] + 66, group_bucket))
+    return (group_bucket, impl, topn,
+            ccap if isinstance(ccap, int) else None)
 
 
 def _try_fused_shuffle(copr, plan, mesh, dim_metas, fact_tbl, fact_arrays,
@@ -1645,7 +2218,8 @@ def _run_fused_mpp(copr, plan, mesh, fact_tbl, fact_arrays, fact_valid, n,
                 return _make_pipeline_body(
                     plan, local, fact_sdicts, tuple(dim_caps),
                     tuple(dim_ns), tuple(dim_sns), tuple(dim_layouts),
-                    dim_pres, kind, param, TorchNS(dev))
+                    dim_pres, kind, param, TorchNS(dev),
+                    want_fnvalid=False)
             if dense:
                 return shard_map(mesh, body_for, lambda outs:
                                  _de.psum_dense_result(outs, aggs, mesh))
@@ -1697,12 +2271,14 @@ def _run_fused_mpp(copr, plan, mesh, fact_tbl, fact_arrays, fact_valid, n,
             for ng, r in zip(ngs, res) if ng > 0]
 
 
-def _fused_cache_key(plan, fact_tbl, cap, agg_kind, agg_param):
+def _fused_cache_key(plan, fact_tbl, cap, agg_kind, agg_param, ecap=None):
     """What a zero-dim fragment bakes in: the plan's expressions, the
-    partition capacity, the fact table's dictionary sizes and the
-    aggregation kind with its parameters (the dense group layout, or
-    the sort kind's bucket, lowering and compact capacity: a regrown
-    bucket never reuses a fragment built for the old one)."""
+    partition capacity, the fact table's dictionary sizes, the
+    aggregation kind with its parameters (the dense group layout, the
+    one-hot table's capacity, or the sort kind's bucket, lowering,
+    top-N candidates and compact capacity: a regrown bucket never reuses
+    a fragment built for the old one) and the early compaction capacity
+    (None: a zero-dim pipeline never compacts early)."""
     dict_vers = tuple(sorted((cid, len(d.values))
                              for cid, d in fact_tbl.dicts.items()))
     fps = tuple(f.fingerprint() for f in plan.fact_dag.filters)
@@ -1711,4 +2287,4 @@ def _fused_cache_key(plan, fact_tbl, cap, agg_kind, agg_param):
     colsig = tuple(sorted((sc.col.idx, sc.name)
                           for sc in plan.fact_dag.cols))
     return ("fused", fact_tbl.uid, cap, fps, gfps, afps, dict_vers, colsig,
-            agg_kind, agg_param)
+            agg_kind, agg_param, ecap)
