@@ -26,16 +26,21 @@ hybrid search at 1 % selectivity, an IVF index trained on the card with
 recall@10 >= 0.95 against a float64 oracle, a stream of inserts folded
 through the tail patch and the index's delta path) and in-SQL inference
 (CREATE MODEL from seeded npz files; predict() fused in a filter over
-SF1 lineitem, through masked_sums, and standalone over orders), each
-held to its host twin in the same process, then the MPP mesh (the
+SF1 lineitem, through masked_sums, and standalone over orders), vector
+statements held to their host twin in the same process and predict()
+to the numpy forward over the same features, then the MPP mesh (the
 Domain's copr over four shards of the card: Q1, Q6, the global
 aggregate, Q3, Q5, Q12 and tests/test_mpp.py's grouped statement as
 mesh programs that launch the scan kernels once per shard and merge by
 psum, a fused join whose orders dim is over the broadcast threshold and
 a 90 %-hot-key join of generated tables through the all_to_all shuffle,
 EXPLAIN of Q3 == the reference's exchange tree; each held to the
-committed rows or the host twin, its route and exchange counted, warm
-within 2 dispatches, 1 sync and no upload), then the cluster (three
+committed rows or digest or the host twin, its route and exchange
+counted, warm within 2 dispatches, 1 sync and no upload; then the
+vector statements over the VECTOR matrix row-sharded on the four
+shards, held to the single card's rows, a 100-row insert folded into
+the sharded matrix, and the fused predict() with masked_sums once per
+shard, held to the single card's scores), then the cluster (three
 worker processes on the card in one gloo process group, SF1 lineitem
 dealt to them and loaded by IMPORT INTO: spmd_agg of Q6's shape, of a
 filter that takes masked_sums and of a grouped statement, query_agg of
@@ -1639,6 +1644,10 @@ def phase_builtins(tk, exp, guard, card=""):
 # host), about 61 rows per center.
 VEC_ROWS, VEC_DIM, VEC_CENTERS, VEC_BLOCK = 250_000, 128, 4096, 1 << 16
 VEC_EDGE_ROWS, VEC_DUPS, VEC_NULLS = 1 << 16, 30, 3
+# the edge table's copies of row 123 start 3 rows before the boundary of
+# its first two shards on phase_mpp's mesh (81,920 rows of capacity over
+# MPP_SHARDS = 4: 20,480 a shard), so the tied slate straddles it there
+VEC_DUP_AT = 20_480 - 3
 VEC_K, VEC_QUERIES, VEC_INSERTS = 10, 20, 5
 VEC_RECALL = 0.95
 FP32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
@@ -1682,9 +1691,9 @@ def vector_load(tk):
     """The corpus through the IMPORT INTO path (ColumnarTable.bulk_append:
     no row KV), its text made by one process per core. Table vcorpus
     (id, grp = id % 100, e VECTOR(128)); table vedge: the first
-    VEC_EDGE_ROWS rows, VEC_DUPS copies of row 123 and VEC_NULLS NULL
-    vectors. -> (the stored float32 matrix as parsed from the text,
-    seconds)."""
+    VEC_EDGE_ROWS rows with VEC_DUPS copies of row 123 at VEC_DUP_AT, then
+    VEC_NULLS NULL vectors. -> (the stored float32 matrix as parsed from
+    the text, seconds)."""
     import multiprocessing
     import numpy as np
     t0 = time.perf_counter()
@@ -1707,8 +1716,9 @@ def vector_load(tk):
                       "e": np.array(texts, dtype=object)}, VEC_ROWS,
                      handles=ids + 1)
     ne = VEC_EDGE_ROWS + VEC_DUPS + VEC_NULLS
-    etexts = np.array(texts[:VEC_EDGE_ROWS] + [texts[123]] * VEC_DUPS +
-                      ["[]"] * VEC_NULLS, dtype=object)
+    etexts = np.array(texts[:VEC_DUP_AT] + [texts[123]] * VEC_DUPS +
+                      texts[VEC_DUP_AT:VEC_EDGE_ROWS] + ["[]"] * VEC_NULLS,
+                      dtype=object)
     enull = np.zeros(ne, dtype=bool)
     enull[-VEC_NULLS:] = True
     etab = dom.columnar.table(dom.infoschema().table_by_name("test",
@@ -1726,6 +1736,34 @@ def vector_load(tk):
     if n != VEC_ROWS or np.isnan(stored).any():
         fail("vector load: the parsed matrix has NaN rows or a wrong length")
     return stored, secs
+
+
+def edge_want():
+    """The edge statement's ids: the NULL vectors first, then row 123 and
+    the lowest of its tied copies."""
+    ne = VEC_EDGE_ROWS + VEC_DUPS + VEC_NULLS
+    return list(range(ne - VEC_NULLS, ne)) + [123] + list(
+        range(VEC_DUP_AT, VEC_DUP_AT + VEC_K - VEC_NULLS - 1))
+
+
+def vec_sql(q, metric="vec_l2_distance", where="", table="vcorpus"):
+    return (f"select id from {table} {where}order by "
+            f"{metric}(e, '{vec_text(q)}') limit {VEC_K}")
+
+
+def vector_mesh_cases(queries, stored):
+    """The statements phase_mpp runs on the mesh, each held to its rows on
+    the single card (recorded at the end of phase_vector, after its
+    inserts): (name, tidb_tpu_vector_nprobe, sql). nprobe 0 keeps the
+    indexed vcorpus on the exact path."""
+    q0 = queries[0]
+    return [("exact_l2", 0, vec_sql(q0)),
+            ("exact_cosine", 0, vec_sql(q0, "vec_cosine_distance")),
+            ("exact_negative_inner", 0,
+             vec_sql(q0, "vec_negative_inner_product")),
+            ("edge", 0, vec_sql(stored[123], table="vedge")),
+            ("hybrid", 0, vec_sql(q0, where="where grp = 7 ")),
+            ("ivf", 8, vec_sql(queries[1]))]
 
 
 def l2_oracle(stored64, q, k, mask=None):
@@ -1844,12 +1882,9 @@ def phase_vector(tk, guard, card):
         (VEC_QUERIES, VEC_DIM), dtype=np.float32) * np.float32(0.15)
     ms = {"load_s": load_s}
 
-    def sql_for(q, metric="vec_l2_distance", where="", table="vcorpus"):
-        return (f"select id from {table} {where}order by "
-                f"{metric}(e, '{vec_text(q)}') limit {VEC_K}")
     # exact, three metrics
     q0 = queries[0]
-    rows, ms["exact_l2"], snap = vector_run(tk, guard, sql_for(q0),
+    rows, ms["exact_l2"], snap = vector_run(tk, guard, vec_sql(q0),
                                             "exact l2", WARM_RUNS)
     want = l2_oracle(stored64, vec_query(q0), VEC_K)
     if [r[0] for r in rows] != want:
@@ -1858,19 +1893,17 @@ def phase_vector(tk, guard, card):
         fail("vector exact l2 did not take the exact device path")
     for metric in ("vec_cosine_distance", "vec_negative_inner_product"):
         _r, ms["exact_" + metric[4:-9]], _s = vector_run(
-            tk, guard, sql_for(q0, metric), "exact " + metric, 2)
+            tk, guard, vec_sql(q0, metric), "exact " + metric, 2)
     # ties across the 10th row and NULL vectors first
-    edge, _m, _s = vector_run(tk, guard, sql_for(
+    edge, _m, _s = vector_run(tk, guard, vec_sql(
         stored[123], table="vedge"), "edge (ties, NULLs)", 2)
-    ne = VEC_EDGE_ROWS + VEC_DUPS + VEC_NULLS
-    want = list(range(ne - VEC_NULLS, ne)) + [123] + list(
-        range(VEC_EDGE_ROWS, VEC_EDGE_ROWS + VEC_K - VEC_NULLS - 1))
+    want = edge_want()
     if [r[0] for r in edge] != want:
         fail(f"vector edge: {edge} != NULLs first, then the lowest of the "
              f"tied rows {want}")
     # hybrid at 1 % selectivity
     hyb, ms["hybrid"], _s = vector_run(
-        tk, guard, sql_for(q0, where="where grp = 7 "), "hybrid 1%",
+        tk, guard, vec_sql(q0, where="where grp = 7 "), "hybrid 1%",
         WARM_RUNS)
     want = l2_oracle(stored64, vec_query(q0), VEC_K,
                      np.arange(VEC_ROWS) % 100 == 7)
@@ -1881,7 +1914,7 @@ def phase_vector(tk, guard, card):
     tk.must_exec("create vector index vidx on vcorpus (e) using ivf")
     phase.reset()
     k0 = guard.calls
-    first = tk.must_query(sql_for(queries[1])).rows
+    first = tk.must_query(vec_sql(queries[1])).rows
     ms["ivf_build_s"] = time.perf_counter() - t0
     index = dom.vector.indexes()[0][1]
     log(f"vector ivf: CREATE VECTOR INDEX + first search (trains "
@@ -1892,7 +1925,7 @@ def phase_vector(tk, guard, card):
     hits = 0
     ivf_warm = []
     for i, q in enumerate(queries):
-        sql = sql_for(q)
+        sql = vec_sql(q)
         rows, med, _s = vector_run(tk, guard, sql, f"ivf q{i}",
                                    WARM_RUNS if i == 0 else 1,
                                    twin=i < 3)
@@ -1927,7 +1960,7 @@ def phase_vector(tk, guard, card):
                               ("vec_l2_distance", "where grp = 7 ")):
             phase.reset()
             q = new[7]
-            got = tk.must_query(sql_for(q, metric, where)).rows
+            got = tk.must_query(vec_sql(q, metric, where)).rows
             snap = phase.snap()
             patches += snap.get("delta_applies", 0)
             if got[0][0] != base + 7:
@@ -1935,7 +1968,7 @@ def phase_vector(tk, guard, card):
                      f"first in {got}")
         tk.must_exec("set @@tidb_tpu_vector_nprobe = 0")
         phase.reset()
-        got = tk.must_query(sql_for(new[3])).rows
+        got = tk.must_query(vec_sql(new[3])).rows
         patches += phase.snap().get("delta_applies", 0)
         tk.must_exec("set @@tidb_tpu_vector_nprobe = 8")
         if got[0][0] != base + 3:
@@ -1946,12 +1979,24 @@ def phase_vector(tk, guard, card):
         f"{patches}, index folds {applied}, rebuilds {rebuilt}")
     if patches < 1 or applied < 1 or rebuilt:
         fail("vector inserts did not fold through the delta paths")
+    # the single card's rows and warm medians of phase_mpp's statements,
+    # after the inserts (its exact L2 and hybrid rows are also held to the
+    # oracle there)
+    cases = vector_mesh_cases(queries, stored)
+    single = {}
+    for name, nprobe, sql in cases:
+        tk.must_exec(f"set @@tidb_tpu_vector_nprobe = {nprobe}")
+        rows, med, _s = vector_run(tk, guard, sql, f"single {name}", 2,
+                                   twin=False)
+        single[name] = (rows, med)
+    tk.must_exec("set @@tidb_tpu_vector_nprobe = 8")
     f1 = fallbacks(dom)
     if f1 != f0:
         fail(f"vector: fallback counters moved {f0} -> {f1}")
     return {"ms": ms, "programs": vector_programs(tk, index, queries,
                                                   card),
-            "recall": recall}
+            "recall": recall, "mesh_cases": cases, "single": single,
+            "stored": stored}
 
 
 def vector_programs(tk, index, queries, card):
@@ -2139,11 +2184,13 @@ def phase_ml(tk, guard, card, nparts):
     predict() fused in a filter over SF1 lineitem (the fused fragment;
     masked_sums once per partition, held to its plain version) and
     standalone over the 1,500,000 orders (MLPredictExec). The fused sum
-    and count equal the host twin's (copr.use_device = False), but for
-    rows whose score the card and the host put on two sides of 0, each
-    of which must lie within 4 ulp of 0 at the scale of its last layer's
-    terms (named in the log); standalone values within rtol 1e-5 of the
-    host twin's. -> {"ms": ..., "programs": [...]}."""
+    and count equal the host's (the numpy forward over the features as
+    _op_predict builds them on the host, the computation the host twin
+    runs), but for rows whose score the card and the host put on two
+    sides of 0, each of which must lie within 4 ulp of 0 at the scale
+    of its last layer's terms (named in the log); standalone values,
+    in table order, within rtol 1e-5 of the host's.
+    -> {"ms": ..., "programs": [...], "fused", "models"}."""
     import shutil
     import tempfile
     import numpy as np
@@ -2196,7 +2243,6 @@ def phase_ml(tk, guard, card, nparts):
              f"expected {nparts}")
     log("ml fused: kernel calls == plain versions on the same tensors: "
         + "; ".join(f"{n} {s}" for n, s in calls))
-    twin, ms["fused_host_twin"] = host_twin(tk, ML_FUSED)
     ws, bs = models["m"]
     X = ml_features(tk, "m", "lineitem")
     n = len(X)
@@ -2219,15 +2265,14 @@ def phase_ml(tk, guard, card, nparts):
     adj_sum = int(price[flips][dev_y[flips] > 0].sum()) - \
         int(price[flips][y[flips] > 0].sum())
     want_cnt = int((y > 0).sum()) + adj_cnt
-    got_sum = cents(rows[0][0])
-    twin_sum = cents(twin[0][0])
-    if int(rows[0][1]) != int(twin[0][1]) + adj_cnt or \
-            got_sum != twin_sum + adj_sum or int(rows[0][1]) != want_cnt:
-        fail(f"ml fused: {rows} != host twin {twin} adjusted by the "
-             f"{len(flips)} rows at 0 ({adj_cnt}, {adj_sum})")
-    log(f"ml fused: {rows} == host twin {twin} (adjusted by {len(flips)} "
-        f"rows at 0); warm {ms['fused']:.3f} ms, host twin "
-        f"{ms['fused_host_twin']:.1f} ms ({card})")
+    want_sum = int(price[y > 0].sum()) + adj_sum
+    if int(rows[0][1]) != want_cnt or cents(rows[0][0]) != want_sum:
+        fail(f"ml fused: {rows} != the host's count {want_cnt} and sum "
+             f"{want_sum} cents, adjusted by the {len(flips)} rows at 0 "
+             f"({adj_cnt}, {adj_sum})")
+    log(f"ml fused: {rows} == the host's count and sum (adjusted by "
+        f"{len(flips)} rows at 0); warm {ms['fused']:.3f} ms ({card})")
+    fused = {"rows": rows, "dev_y": dev_y, "ms": ms["fused"]}
     # standalone
     m0 = mu.ML_PREDICT.labels("device").value
     rows, ms["standalone"], _c = ml_run(tk, guard, ML_STANDALONE,
@@ -2235,25 +2280,29 @@ def phase_ml(tk, guard, card, nparts):
     if mu.ML_PREDICT.labels("device").value - m0 != 1 + WARM_RUNS:
         fail("ml standalone: the statement did not run MLPredictExec on "
              "the card")
-    twin, ms["standalone_host_twin"] = host_twin(tk, ML_STANDALONE)
+    ws2, bs2 = models["m2"]
+    want = host_forward(ml_features(tk, "m2", "orders"), ws2,
+                        bs2).astype(np.float64)
     got = np.array([r[1] for r in rows], dtype=np.float64)
-    want = np.array([r[1] for r in twin], dtype=np.float64)
-    if [r[0] for r in rows] != [r[0] for r in twin]:
-        fail("ml standalone: row order differs from the host twin")
+    otbl = dom.infoschema().table_by_name("test", "orders")
+    octab = dom.columnar.tables[otbl.id]
+    keys = octab.data[otbl.find_column("o_orderkey").id][:octab.n]
+    if [r[0] for r in rows] != keys.tolist():
+        fail("ml standalone: rows are not in the table's order")
     scale = float(np.median(np.abs(want)))
     err = np.abs(got - want)
     bad = err > 1e-5 * np.maximum(np.abs(want), scale)
     if bad.any():
-        fail(f"ml standalone: {int(bad.sum())} values off the host twin by "
+        fail(f"ml standalone: {int(bad.sum())} values off the host's by "
              f"more than rtol 1e-5 (max {err.max()})")
-    log(f"ml standalone: {len(rows)} values within rtol 1e-5 of the host "
-        f"twin (max abs err {err.max():.3g}, median |y| {scale:.3g}); "
-        f"warm {ms['standalone']:.3f} ms, host twin "
-        f"{ms['standalone_host_twin']:.1f} ms ({card})")
+    log(f"ml standalone: {len(rows)} values within rtol 1e-5 of the "
+        f"host's (max abs err {err.max():.3g}, median |y| {scale:.3g}); "
+        f"warm {ms['standalone']:.3f} ms ({card})")
     f1 = fallbacks(dom)
     if f1 != f0:
         fail(f"ml: fallback counters moved {f0} -> {f1}")
-    return {"ms": ms, "programs": ml_programs(tk, models, card, step)}
+    return {"ms": ms, "programs": ml_programs(tk, models, card, step),
+            "fused": fused, "models": models}
 
 
 def ml_programs(tk, models, card, step):
@@ -2382,8 +2431,19 @@ def skew_load(tk):
         "v": (rng.integers(0, 1000, n).astype(np.int64), None, None)})
 
 
+def mpp_digest(name):
+    """The reference's committed count and sha256 of a case's rows
+    (bench/builtins_sf1_expected.json), else None."""
+    if name != "builtins_math":
+        return None
+    with open(os.path.join(ROOT, "tidb_tpu_torch", "bench",
+                           "builtins_sf1_expected.json")) as f:
+        return json.load(f)["math_lineitem"]
+
+
 def mpp_sql(tk, exp, name):
-    """-> (sql, expected rows or None: held to the host twin)."""
+    """-> (sql, expected rows or None: held to the committed digest
+    (mpp_digest) or else the host twin)."""
     if name == "grouped":
         return MPP_GROUPED, None
     if name == "shuffle":
@@ -2397,7 +2457,260 @@ def mpp_sql(tk, exp, name):
     return sql_and_rows(tk, exp, name)
 
 
-def phase_mpp(tk, exp, guard, single_meds):
+def mpp_vector(tk, guard, vec):
+    """phase_vector's statements over the mesh (phase_mpp's shards of the
+    card; no new load): exact in three metrics, the edge table's ties
+    (straddling a shard boundary) and NULLs, hybrid at 1 % and IVF at
+    nprobe 8, each cold once and warm WARM_RUNS times under the sync
+    guard, rows == the single card's (exact L2 and hybrid also == the
+    float64 oracle over the current corpus, the edge case == its want
+    list); warm <= 2 dispatches, <= 1 sync, 0 upload bytes; the matrix
+    a "sharded" entry of the store; then one insert of 100 rows folds
+    into it (one delta apply, no whole upload) and is found.
+    -> {"ms", "single_ms", "sharded_bytes", "fold"}."""
+    import numpy as np
+    from tidb_tpu_torch.expression.vec import _parse_vec_text
+    from tidb_tpu_torch.utils import metrics as mu
+    from tidb_tpu_torch.utils import phase
+    dom = tk.domain
+    copr = dom.copr
+    tbl = dom.infoschema().table_by_name("test", "vcorpus")
+    ctab = dom.columnar.table(tbl)
+    cur, n = ctab.vector_matrix(tbl.find_column("e").id, VEC_DIM)
+    cur64 = cur[:n].astype(np.float64)
+    out = {"ms": {}, "single_ms": {}}
+    for name, nprobe, sql in vec["mesh_cases"]:
+        tk.must_exec(f"set @@tidb_tpu_vector_nprobe = {nprobe}")
+        rows, med, _s = vector_run(tk, guard, sql, f"mpp {name}",
+                                   WARM_RUNS, twin=False)
+        want, single_ms = vec["single"][name]
+        if rows != want:
+            fail(f"mpp vector {name}: {rows} != the single card's {want}")
+        got = [r[0] for r in rows]
+        q = _parse_vec_text(sql.split("'")[1])
+        if name == "exact_l2" and got != l2_oracle(cur64, q, VEC_K):
+            fail(f"mpp vector exact l2: {got} != the float64 oracle")
+        if name == "hybrid" and got != l2_oracle(
+                cur64, q, VEC_K, np.arange(n) % 100 == 7):
+            fail(f"mpp vector hybrid: {got} != the float64 oracle")
+        if name == "edge" and got != edge_want():
+            fail(f"mpp vector edge: {got} != {edge_want()}")
+        out["ms"][name], out["single_ms"][name] = med, single_ms
+        log(f"mpp vector {name}: rows == the single card's; warm median "
+            f"{med:.3f} ms on {MPP_SHARDS} shards against {single_ms:.3f} "
+            "ms on the single card")
+    store = copr._dev_store
+    mats = [k for k in list(store._entries) if k[0] == "vecmat" and
+            k[1] == ctab.uid]
+    cap = mats[0][-1] if mats else 0
+    if len(mats) != 1 or store.spec_of(mats[0]) != "sharded" or \
+            mats[0][-2] != MPP_SHARDS:
+        fail(f"mpp vector: the matrix is not one sharded entry: {mats}")
+    out["sharded_bytes"] = store.stats()["bytes_by_spec"]["sharded"]
+    if out["sharded_bytes"] < cap * VEC_DIM * 4:
+        fail(f"mpp vector: {out['sharded_bytes']} sharded bytes under the "
+             f"{cap} x {VEC_DIM} matrix")
+    # one insert folds into the sharded entry and is found
+    base = n
+    new = vec["stored"][(base + np.arange(100)) % VEC_ROWS] + \
+        np.float32(0.5)
+    tk.must_exec("insert into vcorpus values " + ",".join(
+        f"({base + r}, {(base + r) % 100}, '{vec_text(v)}')"
+        for r, v in enumerate(new)))
+    a0 = mu.DELTA_APPLY.labels("applied").value
+    tk.must_exec("set @@tidb_tpu_vector_nprobe = 0")
+    phase.reset()
+    got = tk.must_query(vec_sql(new[3])).rows
+    snap = phase.snap()
+    tk.must_exec("set @@tidb_tpu_vector_nprobe = 8")
+    whole = cap * VEC_DIM * 4
+    if got[0][0] != base + 3 or snap.get("delta_applies", 0) != 1 or \
+            mu.DELTA_APPLY.labels("applied").value - a0 != 1 or \
+            snap.get("upload_bytes", 0) >= whole:
+        fail(f"mpp vector insert: {got[:3]}, {phase_line(snap)}; expected "
+             f"row {base + 3} first, one delta apply, no whole upload")
+    got_ivf = tk.must_query(vec_sql(new[7])).rows
+    if got_ivf[0][0] != base + 7:
+        fail(f"mpp vector insert: IVF missed row {base + 7}: {got_ivf}")
+    mats2 = [k for k in list(store._entries) if k[0] == "vecmat" and
+             k[1] == ctab.uid]
+    if mats2 != mats or store.spec_of(mats[0]) != "sharded":
+        fail(f"mpp vector insert: the entry changed {mats} -> {mats2}")
+    out["fold"] = {"delta_bytes": snap.get("delta_bytes", 0),
+                   "upload_bytes": snap.get("upload_bytes", 0)}
+    log(f"mpp vector insert: 100 rows folded into the sharded matrix "
+        f"(delta_bytes {snap.get('delta_bytes', 0)}, upload_bytes "
+        f"{snap.get('upload_bytes', 0)} < {whole}) and found by exact and "
+        f"IVF search; sharded resident bytes {out['sharded_bytes']}")
+    return out
+
+
+def mpp_vector_ab(tk, vec, names=("exact_l2", "ivf")):
+    """The mesh against the single card on the same statements, in one
+    process: blocks of WARM_RUNS warm runs alternated single, mesh,
+    single, mesh (each block's first run settles outside the timing: the
+    column keeps one resident matrix, so a switch re-uploads it in its
+    placement), rows equal in every run; then, in each mode's last
+    block, one statement under torch.profiler (device busy ms, device
+    kernels and copies per statement). A finding, not a gate. Ends on
+    the mesh, as it began. -> {name: {"mesh_ms", "single_ms" (warm
+    medians), "mesh_busy_ms", "single_busy_ms", "mesh_wall_ms",
+    "single_wall_ms", "mesh_launches", "single_launches"}}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tidb_tpu_torch.bench.profile_tpch import _busy_us
+    copr = tk.domain.copr
+    cases = {name: (nprobe, sql) for name, nprobe, sql in vec["mesh_cases"]
+             if name in names}
+    ms = {(n, m): [] for n in cases for m in ("mesh", "single")}
+    rows, trace = {}, {}
+    try:
+        for block, mode in enumerate(("single", "mesh") * 2):
+            copr._mesh = False if mode == "single" else None
+            for name, (nprobe, sql) in cases.items():
+                tk.must_exec(f"set @@tidb_tpu_vector_nprobe = {nprobe}")
+                for i in range(1 + WARM_RUNS):
+                    t0 = time.perf_counter()
+                    got = tk.must_query(sql).rows
+                    if i:
+                        ms[(name, mode)].append(
+                            (time.perf_counter() - t0) * 1e3)
+                    if rows.setdefault(name, got) != got:
+                        fail(f"mpp vector a/b {name} {mode}: rows "
+                             f"{got} != {rows[name]}")
+                if block < 2:
+                    continue
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    tk.must_query(sql)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                dev = [e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA]
+                trace[(name, mode)] = (
+                    wall, _busy_us(dev) / 1e3 if dev else None, len(dev))
+    finally:
+        copr._mesh = None
+        tk.must_exec("set @@tidb_tpu_vector_nprobe = 8")
+    out = {}
+    for name in cases:
+        r = out[name] = {}
+        for mode in ("mesh", "single"):
+            r[f"{mode}_ms"] = statistics.median(ms[(name, mode)])
+            (r[f"{mode}_wall_ms"], r[f"{mode}_busy_ms"],
+             r[f"{mode}_launches"]) = trace[(name, mode)]
+        log(f"mpp vector a/b {name}: warm median {r['mesh_ms']:.3f} ms on "
+            f"{MPP_SHARDS} shards, {r['single_ms']:.3f} ms on the single "
+            f"card (blocks alternated); traced: wall {r['mesh_wall_ms']:.3f}"
+            f" / {r['single_wall_ms']:.3f} ms, device busy "
+            f"{r['mesh_busy_ms']} / {r['single_busy_ms']} ms, device "
+            f"kernels and copies {r['mesh_launches']} / "
+            f"{r['single_launches']}")
+    return out
+
+
+def mpp_ml(tk, guard, ml):
+    """phase_ml's fused statement with MPP on over the mesh: cold once,
+    WARM_RUNS warm, then once with every masked_sums call held to its
+    plain version; each on the mesh route with masked_sums launched once
+    per shard; warm <= 2 dispatches, <= 1 sync, 0 upload bytes (the
+    weights resident on the shards' device). Sum and count == the single
+    card's (phase_ml) but for rows the mesh and the single card put on
+    two sides of 0, each within 4 ulp of 0 at its last layer's term scale
+    (phase_ml's rule). -> {"ms", "single_ms", "flips"}."""
+    import numpy as np
+    from tidb_tpu_torch.expression import vec as _vec
+    from tidb_tpu_torch.ops import scan_kernels as sk
+    from tidb_tpu_torch.utils import phase
+    dom = tk.domain
+    scores = []
+    orig = _vec._REGISTRY["predict"]
+
+    def recording(ctx, e):
+        res = orig(ctx, e)
+        if not ctx.host:
+            scores.append(res[0])
+        return res
+    _vec._REGISTRY["predict"] = recording
+    warm, calls, rows = [], [], None
+    try:
+        for i in range(2 + WARM_RUNS):
+            checked = i == 1 + WARM_RUNS
+            scores.clear()
+            m0 = {c: dom.metrics.get(c, 0) for c in MPP_ROUTE}
+            c0 = sk.COUNTS["masked_sums"]
+            g0 = guard.calls
+            phase.reset()
+            t0 = time.perf_counter()
+            if checked:
+                res, calls = checked_kernels(lambda: tk.must_query(ML_FUSED))
+            else:
+                res = tk.must_query(ML_FUSED)
+            ms = (time.perf_counter() - t0) * 1e3
+            snap = phase.snap()
+            rows = res.rows
+            d = {c: dom.metrics.get(c, 0) - m0[c] for c in MPP_ROUTE}
+            if d["fused_pipeline_mpp_hit"] + d["copr_mpp_exec"] != 1 or any(
+                    v for c, v in d.items() if c not in (
+                        "fused_pipeline_mpp_hit", "copr_mpp_exec")):
+                fail(f"mpp ml run {i}: route {d} ({dom.last_fused_reason})")
+            launched = sk.COUNTS["masked_sums"] - c0
+            if launched != MPP_SHARDS or len(scores) != MPP_SHARDS:
+                fail(f"mpp ml run {i}: masked_sums {launched} times, "
+                     f"{len(scores)} predict() calls; expected "
+                     f"{MPP_SHARDS} (one per shard)")
+            disp, syncs = snap.get("dispatches", 0), snap.get("syncs", 0)
+            if guard.calls - g0 != disp:
+                fail(f"mpp ml run {i}: {disp} dispatches, "
+                     f"{guard.calls - g0} under the sync guard")
+            if i and (disp > 2 or syncs > 1 or snap.get("upload_bytes", 0)):
+                fail(f"mpp ml warm run {i}: {phase_line(snap)}")
+            if 0 < i and not checked:
+                warm.append(ms)
+            kind = "cold" if i == 0 else "checked" if checked else "warm"
+            log(f"mpp ml fused {kind} {ms:.2f} ms {phase_line(snap)}")
+        mesh_y = np.concatenate([s.float().cpu().numpy() for s in scores])
+    finally:
+        _vec._REGISTRY["predict"] = orig
+    if sum(c[0] == "masked_sums" for c in calls) != MPP_SHARDS:
+        fail(f"mpp ml: {len(calls)} checked kernel calls, expected "
+             f"{MPP_SHARDS} masked_sums")
+    single_y = ml["fused"]["dev_y"]
+    mesh_y = mesh_y[:len(single_y)]
+    ws, bs = ml["models"]["m"]
+    flips = np.nonzero((mesh_y > 0) != (single_y > 0))[0]
+    h = ml_features(tk, "m", "lineitem")[flips]
+    for W, b in zip(ws[:-1], bs[:-1]):
+        h = np.maximum(h @ W + b, np.float32(0))
+    terms = np.abs(h * ws[-1][:, 0]).sum(1) + abs(float(bs[-1][0]))
+    for r, ys, ym, t in zip(flips, single_y[flips], mesh_y[flips], terms):
+        log(f"mpp ml: row {r} score single card {ys!r} mesh {ym!r} (4 ulp "
+            f"of its terms {4 * ulp32(t)!r})")
+        if abs(ys) > 4 * ulp32(t) or abs(ym) > 4 * ulp32(t):
+            fail(f"mpp ml: row {r} changes sides of 0 at {ys} / {ym}")
+    price = ml_price(tk)
+    up_m, up_s = mesh_y[flips] > 0, single_y[flips] > 0
+    adj_cnt = int(up_m.sum()) - int(up_s.sum())
+    adj_sum = int(price[flips][up_m].sum()) - int(price[flips][up_s].sum())
+    want = ml["fused"]["rows"]
+    if int(rows[0][1]) != int(want[0][1]) + adj_cnt or \
+            cents(rows[0][0]) != cents(want[0][0]) + adj_sum:
+        fail(f"mpp ml: {rows} != the single card's {want} adjusted by the "
+             f"{len(flips)} rows at 0 ({adj_cnt}, {adj_sum})")
+    out = {"ms": statistics.median(warm), "single_ms": ml["fused"]["ms"],
+           "flips": len(flips)}
+    log(f"mpp ml fused: {rows} == the single card's {want} (adjusted by "
+        f"{len(flips)} rows at 0); warm median {out['ms']:.3f} ms on "
+        f"{MPP_SHARDS} shards against {out['single_ms']:.3f} ms on the "
+        "single card; masked_sums calls == plain versions: " + "; ".join(
+            f"{nm} {sh}" for nm, sh in calls))
+    return out
+
+
+def phase_mpp(tk, exp, guard, single_meds, vec=None, ml=None):
     """The MPP mesh path at SF1 over MPP_SHARDS shards of the card: the
     Domain's copr takes a mesh of the card repeated MPP_SHARDS times (the
     lazily resolved mesh of copr/dag_exec.py _get_mesh; restored after),
@@ -2410,8 +2723,11 @@ def phase_mpp(tk, exp, guard, single_meds):
     fragment, no fallback) with its exchange counted; warm: at most 2
     dispatches, at most 1 sync, 0 upload bytes; a kernel case launches
     its kernel once per shard. EXPLAIN of Q3 == the reference's tree.
+    With phase_vector's and phase_ml's results, phase_vector's
+    statements (mpp_vector) and phase_ml's fused predict() (mpp_ml) run
+    on the mesh too.
     -> {"ms": {case: warm median}, "single_ms", "exchange_bytes",
-    "peak_mib", "seconds"}."""
+    "peak_mib", "seconds", "vector", "ml"}."""
     import torch
     from collections import Counter
     from tidb_tpu_torch.ops import scan_kernels as sk
@@ -2447,7 +2763,10 @@ def phase_mpp(tk, exp, guard, single_meds):
             if bcast_t is not None:
                 tk.must_exec("set @@tidb_broadcast_join_threshold_count = "
                              f"{bcast_t}")
-            if want is None:
+            digest = mpp_digest(name)
+            held = "committed rows" if committed else \
+                "committed digest" if digest else "host twin"
+            if want is None and digest is None:
                 want_rows, twin_ms = host_twin(tk, sql)
                 out["single_ms"][name] = twin_ms
                 out.setdefault("twin_rows", {})[name] = want_rows
@@ -2467,11 +2786,18 @@ def phase_mpp(tk, exp, guard, single_meds):
                     rows = tk.must_query(sql)
                 ms = (time.perf_counter() - t0) * 1e3
                 snap = phase.snap()
-                rows = rows._norm() if want is not None else rows.rows
-                if rows != (want if want is not None else want_rows):
+                rows = rows._norm() if want is not None or \
+                    digest is not None else rows.rows
+                if digest is not None:
+                    from tidb_tpu_torch.bench import tpch
+                    differ = digest != {"rows": len(rows),
+                                        "sha256": tpch.rows_digest(rows)}
+                else:
+                    differ = rows != (want if want is not None
+                                      else want_rows)
+                if differ:
                     fail(f"mpp {name} run {i}: rows differ from the "
-                         f"{'committed rows' if committed else 'host twin'}"
-                         f": {rows[:5]}")
+                         f"{held}: {rows[:5]}")
                 d = {c: dom.metrics.get(c, 0) - m0[c] for c in MPP_ROUTE}
                 mesh_route = d["fused_pipeline_mpp_hit"] + d["copr_mpp_exec"]
                 bad = {c: n for c, n in d.items() if n and c not in (
@@ -2510,11 +2836,11 @@ def phase_mpp(tk, exp, guard, single_meds):
             out["ms"][name] = statistics.median(warm)
             if name in single_meds:
                 out["single_ms"][name] = single_meds[name]
-            log(f"mpp {name}: rows == "
-                f"{'committed rows' if committed else 'host twin'}; warm "
+            log(f"mpp {name}: rows == {held}; warm "
                 f"median {out['ms'][name]:.3f} ms against "
                 f"{out['single_ms'].get(name, float('nan')):.3f} ms "
-                f"{'single-card' if committed else 'host twin'}; kernel "
+                f"{'host twin' if held == 'host twin' else 'single-card'}"
+                "; kernel "
                 "calls == plain versions: " + ("; ".join(
                     f"{n} {shape} x{k}" for (n, shape), k in
                     sorted(Counter(calls).items())) or "none"))
@@ -2523,6 +2849,19 @@ def phase_mpp(tk, exp, guard, single_meds):
                              "1024000")
         if mu.MPP_EXCHANGE.labels("broadcast").value - bcast0 < 1:
             fail("mpp: no broadcast exchange of a dim was counted")
+        f0 = fallbacks(dom)
+        if vec is not None:
+            t0 = time.perf_counter()
+            out["vector"] = mpp_vector(tk, guard, vec)
+            out["vector"]["ab"] = mpp_vector_ab(tk, vec)
+            out["vector"]["seconds"] = time.perf_counter() - t0
+        if ml is not None:
+            t0 = time.perf_counter()
+            out["ml"] = mpp_ml(tk, guard, ml)
+            out["ml"]["seconds"] = time.perf_counter() - t0
+        f1 = fallbacks(dom)
+        if f1 != f0:
+            fail(f"mpp vector/ml: fallback counters moved {f0} -> {f1}")
     finally:
         copr.mesh_spec, copr._mesh = saved
         # the later phases count the single-card store's buffers (the
@@ -4321,7 +4660,8 @@ def main():
             f"{json.dumps(ml['ms'])}")
         torch.cuda.empty_cache()
         mpp = counted("mpp", lambda: phase_mpp(
-            tk, exp, guard, {**meds, **join_meds}))
+            tk, exp, guard, {**meds, **join_meds, "builtins_math": builtins[
+                "math_lineitem"]["card_ms"]}, vec, ml))
         torch.cuda.empty_cache()
     log(f"{guard.calls} fragment and program enqueues and "
         f"{sum(guard.hook_calls.values())} hook calls "

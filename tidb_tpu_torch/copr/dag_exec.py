@@ -1093,6 +1093,8 @@ def run_fragment(kern, *args):
     and fused fragment goes through, which chip_smoke.py runs under
     torch.cuda.set_sync_debug_mode("error") to show that no fragment
     waits on the card."""
+    # tpulint: disable=unguarded-dispatch — the seam itself: every
+    # caller enqueues it inside guarded_dispatch (or a guard wrapper)
     return kern(*args)
 
 
@@ -1527,6 +1529,8 @@ def _dense_agg_states_reduce(ctx, mask, aggs, cap):
     plain torch twin of the reference."""
     cols = _kernel_args(ctx, aggs, cap)
     if cols is not None:
+        # tpulint: disable=unguarded-dispatch — runs inside a fragment
+        # body (dense_agg_states), which its run_fragment caller guards
         sums, count = scan_kernels.masked_sums(cols, mask)
         count = count[None]
         return {"present": count,
@@ -1582,6 +1586,8 @@ def dense_agg_states_range(ctx, valid, aggs, ranges, cap, folds):
         if isinstance(nl, torch.Tensor):
             valid = valid & ~nl
         preds.append(d.contiguous())
+    # tpulint: disable=unguarded-dispatch — inside a fragment body, as
+    # masked_sums above
     sums, count = scan_kernels.range_filter_sums(cols, preds, ranges.bounds,
                                                  valid, pairs)
     if order != list(range(len(order))):
@@ -1600,6 +1606,8 @@ def _dense_agg_states_bcr(ctx, mask, aggs, slot, nslots, cap):
     cols = _kernel_args(ctx, aggs, cap)
     if cols is None:
         return _dense_agg_states_scatter(ctx, mask, aggs, slot, nslots, cap)
+    # tpulint: disable=unguarded-dispatch — inside a fragment body, as
+    # masked_sums above
     sums, counts = scan_kernels.dense_group_sums(cols, slot, nslots, mask)
     return {"present": counts,
             "states": _kernel_states(aggs, sums, counts)}

@@ -1856,6 +1856,8 @@ def _fused_partials_inner(copr, plan, read_ts, mesh=None,
         # retry lives one level up (executors.FusedPipelineExec wraps
         # the whole fused_partials call in guarded_dispatch site="fused")
         failpoint.inject("device_guard/fused/kernel")
+        # tpulint: disable=unguarded-dispatch — supervised by
+        # executors.FusedPipelineExec (guarded_dispatch site="fused")
         return (prefetch(run_fragment(kern, fjc, fvv, kargs)), cap,
                 agg_kind, agg_param, ecap, oh_table)
 
@@ -1993,6 +1995,8 @@ def run_fragment(kern, fjc, fvv, dargs):
     the seam every device fragment takes (not its uploads nor its
     fetch), which chip_smoke.py runs under
     torch.cuda.set_sync_debug_mode("error")."""
+    # tpulint: disable=unguarded-dispatch — the fused seam: its callers
+    # run under FusedPipelineExec's guarded_dispatch site="fused"
     return _de.run_fragment(kern, fjc, fvv, dargs)
 
 
@@ -2235,6 +2239,8 @@ def _run_fused_mpp(copr, plan, mesh, fact_tbl, fact_arrays, fact_valid, n,
             if kern is None:
                 kern = copr._kernel_cache.put(key, build())
         failpoint.inject("device_guard/fused/kernel")
+        # tpulint: disable=unguarded-dispatch — supervised by
+        # executors.FusedPipelineExec (guarded_dispatch site="fused")
         res = run_fragment(kern, fjc, fvv, dim_args)
         # PassThrough exchange: dense layouts merged by psum in the
         # program; the sort kind ships per-shard partials in one fetch

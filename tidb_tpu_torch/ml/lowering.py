@@ -6,11 +6,13 @@ tidb_tpu/ml/lowering.py).
 it lands in a copr fragment, the xp-generic forward chain runs in the
 SAME fragment body as the scan/filter/agg over the fragment's device
 columns, with the model's weights taken from MLRuntime.device_weights
-(resident under ("mlw", id, version, i): the reference's weights are
-XLA constants of its compiled fragment, while the port's fragment
-re-runs Python per statement, so a per-call `xp.asarray(W)` would copy
-them every time). Scoring a million rows inside a WHERE clause is part
-of the one fused dispatch, not a separate pass. `embed(m, txt)` is
+(resident under ("mlw", id, version, i, device), one copy per device
+a fragment runs on, each shard's device of a mesh: the reference's
+weights are XLA constants of every shard's compiled program, while the
+port's fragment re-runs Python per statement, so a per-call
+`xp.asarray(W)` would copy them every time). Scoring a million rows
+inside a WHERE clause is part of the one fused dispatch, not a
+separate pass. `embed(m, txt)` is
 host-only: it runs at ingest (computed VECTOR columns) and in host
 eval, producing canonical vector text that folds into the resident
 vector matrix through the delta path.
@@ -82,8 +84,9 @@ def _op_predict(ctx, e):
     ws, bs = h.weights, h.biases
     if not ctx.host and h.runtime is not None:
         copr = h.runtime.domain.copr
-        if copr.device == getattr(xp, "device", None):
-            ws, bs = h.runtime.device_weights(copr, h)
+        dev = getattr(xp, "device", None)
+        if dev is not None and _fragment_device(copr, dev):
+            ws, bs = h.runtime.device_weights(copr, h, dev)
     y = kernels.forward_xp(xp, X, ws, bs)
     if ctx.host:
         h.predict_calls += 1
@@ -97,6 +100,15 @@ def _op_predict(ctx, e):
         # phase counters
         _metrics.ML_PREDICT.labels("fused").inc()
     return xp.asarray(y, dtype=ctx.float_dtype), nullm, None
+
+
+def _fragment_device(copr, dev) -> bool:
+    """Is `dev` a device the copr's fragments run on: its own, or a
+    shard's device of its mesh?"""
+    if dev == copr.device:
+        return True
+    mesh = copr._get_mesh()
+    return mesh is not None and dev in mesh.devices
 
 
 @op("embed")

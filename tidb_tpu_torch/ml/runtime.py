@@ -25,6 +25,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from ..chunk.device import upload
 from ..copr import dag_exec
@@ -80,20 +81,25 @@ class MLRuntime:
         self._dev_nbytes.pop(mid, None)
 
     # ---- device residency ---------------------------------------------
-    def device_weights(self, copr, h):
-        """Weight/bias tensors resident under uid ("mlw", id), keyed
-        ("mlw", id, version, i): exact shapes (matmul operands must NOT
-        be padded), uploaded once as pinned non-blocking copies —
-        warm statements take pool hits only."""
+    def device_weights(self, copr, h, device=None):
+        """Weight/bias tensors on `device` (default: the copr's), resident
+        under uid ("mlw", id) and keyed ("mlw", id, version, i, device):
+        one copy per distinct device a fragment runs on (each shard's
+        device of a mesh: the reference's weights are constants of
+        every shard's program), so invalidate(id) drops them all. Exact
+        shapes (matmul operands must NOT be padded), uploaded once as
+        pinned non-blocking copies — warm statements take pool hits
+        only."""
+        device = copr.device if device is None else torch.device(device)
         store = copr._dev_store
         out = []
         total = 0
         for i, arr in enumerate(list(h.weights) + list(h.biases)):
-            key = ("mlw", h.id, h.version, i)
+            key = ("mlw", h.id, h.version, i, str(device))
             dev = store.get(key)
             if dev is None:
                 a32 = np.asarray(arr, dtype=np.float32)
-                dev = upload(a32, copr.device)
+                dev = upload(a32, device)
                 store.put(key, dev, a32.nbytes, uid=("mlw", h.id),
                           version=h.version)
                 phase.inc("uploads")

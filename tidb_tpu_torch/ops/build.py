@@ -69,6 +69,8 @@ def build(name: str) -> str:
     t0 = time.perf_counter()
     proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
                           capture_output=True, text=True, timeout=600)
+    # tpulint: disable=shared-state-race — build() runs only inside
+    # load()'s `with _LOCK:`, its one caller
     BUILD_LOG[name] = (time.perf_counter() - t0,
                        proc.stdout + proc.stderr)
     if proc.returncode != 0:

@@ -163,6 +163,16 @@ class Sharded:
             out.append(ns)
         return Sharded(self.mesh, out)
 
+    def gather(self, device) -> torch.Tensor:
+        """The whole buffer as one tensor on `device`: the contiguous
+        buffer itself when every shard lies on one device (a copy only
+        when that is another device), else the shards copied over
+        (non-blocking) and concatenated in shard order."""
+        device = torch.device(device)
+        if self.full is not None:
+            return _to(self.full, device)
+        return torch.cat([_to(s, device) for s in self.shards])
+
     def numpy(self) -> np.ndarray:
         """The whole buffer on the host (tests and debugging)."""
         return np.concatenate([s.cpu().numpy() for s in self.shards])

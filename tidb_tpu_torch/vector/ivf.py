@@ -36,6 +36,7 @@ import time
 import numpy as np
 
 from ..chunk.device import shape_bucket, upload
+from ..parallel.mesh import Sharded
 from ..utils import device_guard
 from ..utils import metrics as _metrics
 from ..utils.fetch import host_array, prefetch
@@ -174,9 +175,14 @@ class IVFIndex:
     def _resident(self, copr, ctab, cid, n, ectx):
         """The runtime's resident [cap, dim] matrix, holding at least n
         rows (the training and posting programs read it in place: no
-        second upload of the corpus)."""
+        second upload of the corpus). A matrix sharded over a mesh is
+        gathered onto the Domain's device (a device copy, no upload):
+        the reference trains on one local copy too, so the centroids
+        and postings equal the single-device route's."""
         dmat, rows, _cap = self.domain.vector.device_matrix(
             copr, ctab, cid, self.dim, ectx)
+        if isinstance(dmat, Sharded):
+            dmat = dmat.gather(copr.device)
         return dmat, rows
 
     def _kmeans(self, copr, ctab, cid, mat, live, cent0, ectx):

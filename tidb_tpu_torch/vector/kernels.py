@@ -34,6 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import _to
+
 # rows per chunk of the [rows, nlist] distance matrix (assignment)
 ASSIGN_CHUNK = 1 << 16
 _LOW32 = (1 << 32) - 1
@@ -84,12 +86,13 @@ def _ordered_int(key):
 
 def select_topk(key, kcap):
     """-> (keys[kcap] f32, pos[kcap] i64): the kcap largest keys, ties
-    by the lowest position (lax.top_k's order)."""
-    pos = torch.arange(key.numel(), device=key.device, dtype=torch.int64)
+    by the lowest position (lax.top_k's order). A [rows, n] key selects
+    per row (positions within the row)."""
+    pos = torch.arange(key.shape[-1], device=key.device, dtype=torch.int64)
     comp = (_ordered_int(key) << 32) | (_LOW32 - pos)
     top = torch.topk(comp, kcap).values
     idx = _LOW32 - (top & _LOW32)
-    return key[idx], idx
+    return key.gather(-1, idx), idx
 
 
 def select_topk_plain(key, kcap):
@@ -127,6 +130,88 @@ def build_ivf_score_kernel(metric: str, kcap: int):
         return vals, cand[pos].to(torch.int32)
 
     return kern
+
+
+def build_topk_mesh_kernel(metric: str, kcap: int, mesh, local: int,
+                           device):
+    """build_topk_kernel over a row-sharded matrix (parallel.mesh
+    Sharded, `local` rows per shard), the partitioning that XLA's GSPMD
+    makes of the reference's program written out: each shard scores its
+    own block and keeps its top min(kcap, local) with global positions;
+    the ndev slates move to `device` (non-blocking, as psum's partials
+    do) and merge into the global top-kcap ordered by (key descending,
+    global position ascending), which is lax.top_k's order over the
+    whole array. Every global top-kcap row is in its shard's local
+    slate, so the merge loses none. Where every shard lies on one
+    device (Sharded.full: the shards are row blocks of one buffer), one
+    launch scores them all and one batched top-k over the
+    [ndev, local] view takes every shard's slate. mat and valid are
+    Sharded, q a Replicated. -> (keys[kcap] f32, idx[kcap] i32) on
+    `device`."""
+    kl = min(kcap, local)
+    ndev = mesh.size
+
+    def slates(mat, valid, q):
+        if mat.full is not None:
+            d = _distances_xp(torch, mat.full, q.on(mesh.devices[0]),
+                              metric)
+            k, p = select_topk(
+                _select_key_xp(torch, d, valid.full).view(ndev, local), kl)
+            p = p + torch.arange(0, ndev * local, local,
+                                 device=p.device).unsqueeze(1)
+            return _to(k.reshape(-1), device), _to(p.reshape(-1), device)
+        keys, poss = [], []
+        for i, dev in enumerate(mesh.devices):
+            d = _distances_xp(torch, mat.shards[i], q.on(dev), metric)
+            k, p = select_topk(_select_key_xp(torch, d, valid.shards[i]),
+                               kl)
+            keys.append(_to(k, device))
+            poss.append(_to(p + i * local, device))
+        return torch.cat(keys), torch.cat(poss)
+
+    def program(mat, valid, q):
+        key, pos = slates(mat, valid, q)
+        comp = (_ordered_int(key) << 32) | (_LOW32 - pos)
+        top = torch.topk(comp, kcap).indices
+        return key[top], pos[top].to(torch.int32)
+
+    return program
+
+
+def build_ivf_score_mesh_kernel(metric: str, kcap: int, mesh, local: int,
+                                device):
+    """build_ivf_score_kernel over a row-sharded matrix: the candidates
+    are global positions; each shard gathers them from its own block
+    (local indices clamped into it) and keys only the candidates it
+    owns (the others -inf); on `device` each candidate takes its
+    owner's key, and one top-kcap selects over the candidate array, ties
+    by the lowest candidate position as on one device. Where every shard
+    lies on one device (Sharded.full), the owners' blocks are row blocks
+    of one buffer, so one gather at the global positions reads every
+    candidate from its owner. mat is Sharded; cand, cvalid and q are
+    Replicated."""
+    one = build_ivf_score_kernel(metric, kcap)
+
+    def program(mat, cand, cvalid, q):
+        if mat.full is not None:
+            dev = mesh.devices[0]
+            vals, idx = one(mat.full, cand.on(dev), cvalid.on(dev),
+                            q.on(dev))
+            return _to(vals, device), _to(idx, device)
+        key = None
+        for i, dev in enumerate(mesh.devices):
+            c = cand.on(dev).to(torch.int64) - i * local
+            own = (c >= 0) & (c < local)
+            d = _distances_xp(torch, mat.shards[i][c.clamp(0, local - 1)],
+                              q.on(dev), metric)
+            k = _to(_select_key_xp(torch, d, cvalid.on(dev) & own), device)
+            key = k if key is None else torch.where(_to(own, device), k,
+                                                    key)
+        vals, pos = select_topk(key, kcap)
+        return vals, _to(cand.on(mesh.devices[0]), device)[pos].to(
+            torch.int32)
+
+    return program
 
 
 def assign_rows(mat, cent, chunk=ASSIGN_CHUNK):

@@ -20,8 +20,18 @@ seam chip_smoke.py runs under torch.cuda.set_sync_debug_mode("error");
 the query vector and the IVF candidate ids go up as pinned non-blocking
 copies (counted as `query_upload_bytes`, beside the resident store's
 `upload_bytes`), and the slate comes back in one pinned fetch (one
-counted sync). Single-device: the reference's mesh-sharded matrix is
-not ported.
+counted sync).
+
+With a mesh (copr._get_mesh(): two or more shards) the matrix is
+row-sharded over it as the reference's is (parallel.mesh Sharded, the
+capacity rounded up to 128 x ndev, stored with spec "sharded"), and so
+is the validity mask; the tail patch keeps the placement
+(Sharded.patched); exact top-k and IVF scoring run the mesh programs of
+vector/kernels.py, one program per statement as on one device, the
+query vector and candidates replicated to each distinct device of the
+mesh. IVF training and assignment read the shards gathered onto the
+Domain's device (the reference trains on one local copy too), so the
+index equals the single-device one.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ import numpy as np
 
 from ..chunk.device import shape_bucket, upload
 from ..copr import dag_exec
+from ..parallel.mesh import Replicated, Sharded, place_sharded
 from ..utils import phase
 from ..utils import memory as _memory
 from ..utils import metrics as _metrics
@@ -68,11 +79,24 @@ def _device_scoring(copr) -> bool:
     return copr.device.type == "cuda"
 
 
-def _query_upload(q32, device):
+def _query_upload(q32, device, mesh=None):
     """The query vector (or candidate ids) as a pinned non-blocking
-    copy, counted apart from the resident store's uploads."""
+    copy, counted apart from the resident store's uploads; with a mesh
+    one copy per distinct device (a Replicated)."""
+    if mesh is not None:
+        return Replicated(mesh, {str(d): _query_upload(q32, d)
+                                 for d in mesh.distinct()})
     phase.add("query_upload_bytes", q32.nbytes)
     return upload(q32, device)
+
+
+def _mesh_of(dmat):
+    """The mesh a resident matrix is sharded over, else None."""
+    return dmat.mesh if isinstance(dmat, Sharded) else None
+
+
+def _mesh_key(mesh):
+    return None if mesh is None else mesh.fingerprint()
 
 
 class VectorRuntime:
@@ -180,13 +204,19 @@ class VectorRuntime:
         """The resident float32[cap, dim] matrix for a vector column:
         pure pool hit on an unchanged table, 2-D tail patch (ONE
         program, site vector/delta) under appends, full upload only on
-        first touch / bucket growth / gc. -> (device tensor, rows,
+        first touch / bucket growth / gc. With a mesh the matrix is a
+        Sharded placement over it. -> (device tensor or Sharded, rows,
         cap)."""
         mat, n = ctab.vector_matrix(cid, dim)
         store = copr._dev_store
+        mesh = copr._get_mesh()
+        ndev = mesh.size if mesh is not None else 1
         cap = shape_bucket(n)
+        if ndev > 1:
+            lane = 128 * ndev
+            cap = ((cap + lane - 1) // lane) * lane
         uid = ("vec", ctab.uid)
-        key = ("vecmat", ctab.uid, cid, dim, ctab.gc_epoch, cap)
+        key = ("vecmat", ctab.uid, cid, dim, ctab.gc_epoch, ndev, cap)
         with self._mu:
             prev = self._matkey.get((ctab.uid, cid))
             if prev is not None and prev != key:
@@ -211,7 +241,12 @@ class VectorRuntime:
         padded = np.full((cap, dim), np.nan, dtype=np.float32)
         padded[:n] = mat[:n]
         t0 = time.perf_counter()
-        dev = upload(padded, copr.device)
+        if mesh is not None:
+            dev = place_sharded(mesh, padded)
+            spec = "sharded"
+        else:
+            dev = upload(padded, copr.device)
+            spec = "local"
         nbytes = padded.nbytes
         phase.add("upload_s", time.perf_counter() - t0)
         phase.add("upload_bytes", nbytes)
@@ -219,7 +254,7 @@ class VectorRuntime:
         _memory.consume_current(nbytes)
         store.put_appendable(key, dev, nbytes, uid, ctab.version,
                              rows=n, start=0, span=None, cap=cap,
-                             epoch=ctab.gc_epoch)
+                             spec=spec, ndev=ndev, epoch=ctab.gc_epoch)
         return dev, n, cap
 
     def _patch_matrix(self, copr, key, dev, rows, want, mat, ectx):
@@ -244,10 +279,16 @@ class VectorRuntime:
             return None
         upd = np.full((ulen, mat.shape[1]), np.nan, dtype=np.float32)
         upd[:dlen] = mat[rows:want]
+        mesh = _mesh_of(dev)
 
         def fold():
             kc = copr._kernel_cache
-            ck = ("vec_fold", cap, ulen, mat.shape[1])
+            ck = ("vec_fold", cap, ulen, mat.shape[1], _mesh_key(mesh))
+            if mesh is not None:
+                # the same placement: a patch whose rows straddle a
+                # shard boundary writes both shards' fresh copies
+                kern = kc.get(ck) or kc.put(ck, Sharded.patched)
+                return kern(dev, upd, rows)
             kern = kc.get(ck) or kc.put(ck, kernels.patch_rows)
             return kern(dev, upload(upd, copr.device), rows)
 
@@ -306,22 +347,26 @@ class VectorRuntime:
         def dev():
             dmat, _rows, cap = self.device_matrix(copr, ctab, cid, dim,
                                                   ectx)
+            mesh = _mesh_of(dmat)
             pv = valid
             if len(pv) != cap:
                 pv = np.zeros(cap, dtype=bool)
                 pv[:n] = valid[:n]
-            # derived per-(version, snapshot) entry under the TABLE uid:
-            # the bind-time sweep reclaims stale ones like every other
-            # validity mask
+            # derived per-(version, snapshot) entry under the TABLE uid,
+            # in the matrix's placement: the bind-time sweep reclaims
+            # stale ones like every other validity mask
             dvalid = copr._dev_put(
                 (ctab.uid, "vecvalid", ctab.version, read_ts,
-                 ctab.gc_epoch, filter_fp, cap),
-                pv, pad_fill=False, uid=ctab.uid, version=ctab.version)
-            dq = _query_upload(q32, copr.device)
+                 ctab.gc_epoch, filter_fp, _mesh_key(mesh), cap),
+                pv, pad_fill=False, uid=ctab.uid, version=ctab.version,
+                mesh=mesh, spec="sharded")
+            dq = _query_upload(q32, copr.device, mesh)
             kc = copr._kernel_cache
-            ck = ("vec_topk", metric, cap, dim, kcap)
-            kern = kc.get(ck) or kc.put(
-                ck, kernels.build_topk_kernel(metric, kcap))
+            ck = ("vec_topk", metric, cap, dim, kcap, _mesh_key(mesh))
+            kern = kc.get(ck) or kc.put(ck, (
+                kernels.build_topk_kernel(metric, kcap) if mesh is None
+                else kernels.build_topk_mesh_kernel(
+                    metric, kcap, mesh, dmat.local, copr.device)))
             keys, idx = prefetch(dag_exec.run_fragment(kern, dmat, dvalid,
                                                        dq))
             hk = host_array(keys)
@@ -385,18 +430,22 @@ class VectorRuntime:
         def dev():
             dmat, _rows, cap = self.device_matrix(copr, ctab, cid,
                                                   index.dim, ectx)
+            mesh = _mesh_of(dmat)
             pc = np.zeros(ccap, dtype=np.int32)
             pc[:len(cand)] = cand
             cv = np.zeros(ccap, dtype=bool)
             cv[:len(cand)] = valid[cand]
             kc = copr._kernel_cache
-            ck = ("vec_ivf", metric, cap, index.dim, ccap, kcap)
-            kern = kc.get(ck) or kc.put(
-                ck, kernels.build_ivf_score_kernel(metric, kcap))
+            ck = ("vec_ivf", metric, cap, index.dim, ccap, kcap,
+                  _mesh_key(mesh))
+            kern = kc.get(ck) or kc.put(ck, (
+                kernels.build_ivf_score_kernel(metric, kcap)
+                if mesh is None else kernels.build_ivf_score_mesh_kernel(
+                    metric, kcap, mesh, dmat.local, copr.device)))
             keys, idx = prefetch(dag_exec.run_fragment(
-                kern, dmat, _query_upload(pc, copr.device),
-                _query_upload(cv, copr.device),
-                _query_upload(q32, copr.device)))
+                kern, dmat, _query_upload(pc, copr.device, mesh),
+                _query_upload(cv, copr.device, mesh),
+                _query_upload(q32, copr.device, mesh)))
             hk = host_array(keys)
             hi = host_array(idx).astype(np.int64)
             return hi[hk > -np.inf]
