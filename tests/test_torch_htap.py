@@ -208,6 +208,28 @@ class TestInvalidationRace:
         assert store.get_appendable(("tcol", 1, "frag", 2, "d", 0, 0,
                                      64)) is None
 
+    def test_drop_table_drops_appendable_entries(self):
+        """What reclaims the appendable entries the version sweep keeps:
+        DROP TABLE and TRUNCATE TABLE release the table's device buffers
+        at once (its uid is never bound again), appendable ones
+        included."""
+        tk = _mk()
+        tk.must_exec("create table u (id int primary key, k int, v int)")
+        tk.must_exec("insert into u select id, k, v from t")
+        store = tk.domain.copr._dev_store
+        uids = {}
+        for name in ("t", "u"):
+            tk.must_query(Q.replace("from t", f"from {name}"))
+            uids[name] = tk.domain.columnar.tables[
+                tk.domain.infoschema().table_by_name("test", name).id].uid
+            assert store.appendable_entries(uids[name])
+        tk.must_exec("drop table t")
+        assert store.appendable_entries(uids["t"]) == []
+        assert not store._by_uid.get(uids["t"])
+        tk.must_exec("truncate table u")
+        assert store.appendable_entries(uids["u"]) == []
+        assert tk.must_query("select count(*) from u").rows == [(0,)]
+
     def test_apply_delta_cas_on_rows(self):
         """Two concurrent folds race: the second apply_delta with a
         stale expect_rows must lose without clobbering the winner."""

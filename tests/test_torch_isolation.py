@@ -199,7 +199,10 @@ def test_no_jax_or_reference_imports():
                  "tools/perf_smoke.py", "tools/chaos_smoke.py",
                  "tools/mem_smoke.py", "tools/ddl_smoke.py",
                  "tools/crash_smoke.py", "tools/metrics_smoke.py",
-                 "tools/oltp_smoke.py"):
+                 "tools/oltp_smoke.py", "tools/vector_smoke.py",
+                 "tools/ml_smoke.py", "tools/htap_smoke.py",
+                 "tools/cdc_smoke.py", "tools/backup_smoke.py",
+                 "tools/replica_smoke.py", "tools/cluster_smoke.py"):
         assert os.path.join("tidb_tpu_torch", hook) in paths
     found = []
     for path in _sources():
@@ -222,7 +225,9 @@ class _Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, _Block())
 from tidb_tpu_torch.tools import (perf_smoke, chaos_smoke, mem_smoke,
                                   ddl_smoke, crash_smoke, metrics_smoke,
-                                  oltp_smoke)  # noqa: F401
+                                  oltp_smoke, vector_smoke, ml_smoke,
+                                  htap_smoke, cdc_smoke, backup_smoke,
+                                  replica_smoke, cluster_smoke)  # noqa: F401
 report = {}
 failures = perf_smoke.run(queries=["q6", "q1"], sf=0.01, device="cpu",
                           out=open(os.devnull, "w"), report=report)
@@ -235,7 +240,7 @@ print("perf_smoke", sorted(report))
 
 
 def test_gate_tools_run_with_jax_and_reference_blocked():
-    """The seven gate tools import with jax and tidb_tpu blocked, and
+    """The fourteen gate tools import with jax and tidb_tpu blocked, and
     perf_smoke's fast slice (Q6 and Q1 at SF0.01) passes."""
     out = subprocess.run([sys.executable, "-c", _BLOCKED_GATE], cwd=ROOT,
                          env=_env(), capture_output=True, text=True,

@@ -373,15 +373,19 @@ def test_recording_overhead_under_5_percent():
     on, off = [], []
     try:
         # interleave BOTH orders so background noise (GC, another CI
-        # job) cannot systematically land on one configuration
-        for first_on in (False, True, False, True):
+        # job) cannot systematically land on one configuration. Eight
+        # pairs where the reference takes four: both packages make the
+        # same recording calls a statement (83, cProfile), and beside
+        # other test files four pairs left the port's twin at the mercy
+        # of the host's load
+        for first_on in (False, True) * 4:
             for enabled in (first_on, not first_on):
                 metrics.REGISTRY.enabled = enabled
                 (on if enabled else off).append(loop())
     finally:
         metrics.REGISTRY.enabled = True
     best_on, best_off = min(on), min(off)
-    # min-of-4 strips scheduler noise; 50ms absolute floor keeps a
+    # min-of-8 strips scheduler noise; 50ms absolute floor keeps a
     # ~150ms loop from flaking on a busy CI box (the real recording
     # cost is a few µs/statement, far under both bounds)
     assert best_on <= best_off * 1.05 + 0.05, \

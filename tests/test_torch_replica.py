@@ -195,6 +195,61 @@ class TestReplicaConsistency:
         finally:
             tk.sess.domain.close()
 
+    def test_resolved_read_after_other_writers_converges(self):
+        """replica_smoke's quiesce check. Writers on other sessions
+        stop; a resolved read of this session (which wrote nothing, so
+        any replica within the SLA qualifies) may be served at a
+        watermark below their last commits, but it holds only committed
+        rows and reaches the leader's within the SLA; the leader-mode
+        read has every committed row, and each mirror equals exactly
+        those rows (none that was never acknowledged)."""
+        tk = _mk(20)
+        try:
+            reps = _provision(tk, 2)
+            stop = threading.Event()
+            acked = []
+
+            def writer(i):
+                s = tk.new_session()
+                k = 1000 * (i + 1)
+                while not stop.is_set():
+                    k += 1
+                    s.must_exec(f"insert into t values ({k}, {k % 5}, "
+                                f"{k}, 'w')")
+                    acked.append(k)
+            ths = [threading.Thread(target=writer, args=(i,))
+                   for i in range(4)]
+            for t in ths:
+                t.start()
+            time.sleep(1.0)
+            stop.set()
+            for t in ths:
+                t.join()
+            leader_sess = tk.new_session()
+            leader_sess.must_exec(
+                "set @@tidb_tpu_analytic_read_mode = 'leader'")
+            leader = leader_sess.must_query(
+                "select id, k, v, s from t order by id").rows
+            assert {r[0] for r in leader} == set(range(20)) | set(acked)
+            max_lag = int(tk.sess.vars.get("tidb_tpu_replica_max_lag_ms"))
+            t0 = time.time()
+            while True:
+                rs = tk.must_query("select id, k, v, s from t order by id")
+                assert set(rs.rows) <= set(leader)
+                if rs.rows == leader:
+                    break
+                assert time.time() - t0 < max_lag / 1000.0 + 5
+                time.sleep(0.02)
+            deadline = time.time() + 10
+            while time.time() < deadline and not all(
+                    r.sink.mirror_rows("test", "t") == leader
+                    for r in reps):
+                time.sleep(0.05)
+            for r in reps:
+                assert r.sink.mirror_rows("test", "t") == leader
+        finally:
+            tk.sess.domain.close()
+
     def test_read_your_writes_in_explicit_txn(self):
         """Explicit-txn reads are leader-clamped (REPEATABLE
         READ): never routed to a replica, own writes visible under the

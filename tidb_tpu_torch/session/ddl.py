@@ -113,6 +113,7 @@ class DDLExecutor:
 
     def drop_database(self, stmt: ast.DropDatabaseStmt):
         def fn(m):
+            dropped.clear()
             target = None
             for db in m.list_databases():
                 if db.name.lower() == stmt.name.lower():
@@ -124,9 +125,11 @@ class DDLExecutor:
                 raise DatabaseNotExistsError(
                     "Can't drop database '%s'; database doesn't exist", stmt.name)
             for t in m.list_tables(target.id):
-                self.domain.columnar.drop_table(t.id)
+                dropped.append(self.domain.columnar.drop_table(t.id))
             m.drop_database(target.id)
+        dropped = []
         self._with_meta(fn)
+        self._release_resident(dropped)
         if self.sess.vars.current_db.lower() == stmt.name.lower():
             self.sess.vars.current_db = ""
 
@@ -451,6 +454,7 @@ class DDLExecutor:
 
     def drop_table(self, stmt: ast.DropTableStmt):
         def fn(m):
+            dropped.clear()
             for tn in stmt.tables:
                 db_name = tn.db or self.sess.vars.current_db
                 db = self._db_by_name(m, db_name)
@@ -464,8 +468,20 @@ class DDLExecutor:
                         continue
                     raise TableNotExistsError("Unknown table '%s'", tn.name)
                 m.drop_table(db.id, target.id)
-                self.domain.columnar.drop_table(target.id)
+                dropped.append(self.domain.columnar.drop_table(target.id))
+        dropped = []
         self._with_meta(fn)
+        self._release_resident(dropped)
+
+    def _release_resident(self, tables):
+        """Drop the device buffers of dropped tables now: a dropped
+        table's uid is never bound again, so its buffers would stay
+        charged until LRU eviction. Outside the meta transaction, which
+        must not take the resident store's lock."""
+        store = self.domain.copr._dev_store
+        for tbl in tables:
+            if tbl is not None:
+                store.invalidate(tbl.uid)
 
     def truncate_table(self, stmt: ast.TruncateTableStmt):
         tn = stmt.table
@@ -480,10 +496,12 @@ class DDLExecutor:
             if target is None:
                 raise TableNotExistsError("Unknown table '%s'", tn.name)
             m.drop_table(db.id, target.id)
-            self.domain.columnar.drop_table(target.id)
+            dropped[:] = [self.domain.columnar.drop_table(target.id)]
             target.id = m.gen_global_id()
             m.create_table(db.id, target)
+        dropped = []
         self._with_meta(fn)
+        self._release_resident(dropped)
 
     def rename_table(self, stmt: ast.RenameTableStmt):
         def fn(m):

@@ -460,7 +460,8 @@ class ColumnarEngine:
         return t
 
     def drop_table(self, table_id: int):
-        self.tables.pop(table_id, None)
+        """-> the dropped ColumnarTable, or None."""
+        return self.tables.pop(table_id, None)
 
     def apply_commit(self, commit_ts: int, mutations: list):
         if self._replay_buffer is not None:

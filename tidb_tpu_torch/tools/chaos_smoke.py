@@ -42,7 +42,7 @@ import os
 import sys
 import time
 
-from .gates import device_of
+from .gates import device_of, txn_open
 
 SITES = ("copr/agg", "copr/filter", "copr/topn", "copr/mpp",
          "fused/kernel", "sort", "window", "join")
@@ -136,11 +136,6 @@ def _run_cpu(tk, queries, host, err, budget, out):
     return failures
 
 
-def _txn_open(tk):
-    t = tk.sess._txn
-    return t is not None and not t.committed and not t.aborted
-
-
 def _run_card(tk, queries, host, err, budget, expected, out, report):
     from tidb_tpu_torch.bench.tpch import ALL_QUERIES
     from tidb_tpu_torch.errors import DeviceUnavailableError
@@ -185,7 +180,7 @@ def _run_card(tk, queries, host, err, budget, expected, out, report):
                 if dt > budget:
                     failures.append(f"{site} {q}: {dt:.1f}s > "
                                     f"{budget:.0f}s budget")
-                if _txn_open(tk):
+                if txn_open(tk):
                     failures.append(f"{site} {q}: the statement's "
                                     "transaction is still open")
                 if mvcc._locks:
